@@ -1,0 +1,73 @@
+"""txt2vid_tpu_torch's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: skips where there is no CUDA device. Imports no JAX, so it runs
+on a machine with only PyTorch; there, skip the suite's JAX conftest:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: float32 max|diff| <= 1e-4 * max(1, max|ref|) (summation order);
+bfloat16 o 1e-2 (o is rounded to bf16), lse 1e-4 (f32 from the same inputs).
+"""
+
+import pytest
+import torch
+
+from txt2vid_tpu_torch.ops.attention import attention_core_auto, no_kernel
+from txt2vid_tpu_torch.ops.fused_attention import fused_attention, fused_attention_reference
+
+pytestmark = pytest.mark.cuda
+
+# (B, N, M, d, dv): both instantiations, tiles that do not divide N or M, and
+# the generator's up1 attention at serving batch 8
+SHAPES = [(2, 64, 16, 4, 16), (2, 90, 22, 4, 16), (1, 48, 12, 16, 64),
+          (2, 45, 15, 16, 64), (3, 1000, 250, 4, 16), (128, 1024, 256, 4, 16)]
+
+
+@pytest.fixture(autouse=True)
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+
+
+def _inputs(shape, dtype, seed=0):
+    b, n, m, d, dv = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(2 * torch.randn(size, generator=gen, device="cuda")).to(dtype)
+            for size in ((b, n, d), (b, m, d), (b, m, dv))]
+
+
+def _assert_close(ref, got, tol):
+    ref, got = ref.float(), got.float()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((ref - got).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_matches_plain(shape, dtype):
+    theta, phi, g = _inputs(shape, dtype)
+    before = fused_attention.launches
+    o, lse = fused_attention(theta, phi, g, return_lse=True)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    ref_o, ref_lse = fused_attention_reference(theta, phi, g, return_lse=True)
+    _assert_close(ref_o, o, 1e-4 if dtype == torch.float32 else 1e-2)
+    _assert_close(ref_lse, lse, 1e-4)
+
+
+def test_dispatch_on_cuda():
+    theta, phi, g = _inputs(SHAPES[0], torch.float32)
+    before = fused_attention.launches
+    with no_kernel():
+        attention_core_auto(theta, phi, g)
+    attention_core_auto(theta, phi, g, use_kernel=False)
+    assert fused_attention.launches == before
+    attention_core_auto(theta, phi, g)
+    assert fused_attention.launches == before + 1
+
+
+def test_unsupported_pair_raises_on_cuda():
+    theta, phi, _ = _inputs(SHAPES[0], torch.float32)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_attention(theta, phi, torch.zeros(2, 16, 8, device="cuda"))

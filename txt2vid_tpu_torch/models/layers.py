@@ -1,0 +1,114 @@
+"""Generator building blocks (counterpart of txt2vid_tpu/models/layers.py), NCHW.
+
+The non-local `Attention` routes its softmax core through the fused CUDA kernel
+for CUDA tensors (ops/fused_attention.py) and the plain version for CPU tensors.
+Module and parameter names follow the JAX package, so txt2vid_tpu_torch.convert
+maps a flax tree onto these state dicts by name. Attention3d and DownBlock (the
+discriminator's blocks) wait for the training slice.
+"""
+
+import torch
+from torch import nn
+
+from txt2vid_tpu_torch.ops.attention import attention_core_auto
+from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, xavier_normal_
+from txt2vid_tpu_torch.ops.pooling import max_pool_2d, upsample_nearest_2d
+
+
+def _init_conv(conv, generator, gain: float = 1.0):
+    xavier_normal_(conv.weight, gain, generator)
+    if conv.bias is not None:
+        nn.init.zeros_(conv.bias)
+
+
+def _init_bn(bn):
+    bn.reset_parameters()     # weight 1, bias 0, running mean 0 / var 1
+
+
+def _tokens(x):
+    """(B, C, H, W) -> contiguous (B, H*W, C), rows in the JAX reshape order."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
+
+
+class Attention(nn.Module):
+    """2D non-local block, SA-GAN/BigGAN style: theta/phi C/8 channels, g C/2,
+    2x2 max-pool on phi/g, unscaled softmax over H*W x H*W/4, output 1x1 conv,
+    learnable scalar gamma (init 0), residual. Input (B, C, H, W)."""
+
+    def __init__(self, ch: int, use_kernel: bool = True):
+        super().__init__()
+        self.use_kernel = use_kernel
+        self.theta = nn.Conv2d(ch, ch // 8, 1, bias=False)
+        self.phi = nn.Conv2d(ch, ch // 8, 1, bias=False)
+        self.g = nn.Conv2d(ch, ch // 2, 1, bias=False)
+        self.o = nn.Conv2d(ch // 2, ch, 1, bias=False)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def init_weights(self, generator):
+        for conv in (self.theta, self.phi, self.g, self.o):
+            _init_conv(conv, generator)
+        nn.init.zeros_(self.gamma)
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        o = attention_core_auto(_tokens(self.theta(x)),
+                                _tokens(max_pool_2d(self.phi(x))),
+                                _tokens(max_pool_2d(self.g(x))),
+                                use_kernel=self.use_kernel)          # (B, N, C/2)
+        o = o.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+        return self.gamma.to(x.dtype) * self.o(o) + x
+
+
+class UpBlock(nn.Module):
+    """Pre-activation residual 2x-upsample block: main = BN-ReLU-Upsample-
+    conv3x3-BN-ReLU-conv3x3 (sqrt(2)-gain init), identity = Upsample (+1x1 conv
+    on channel change); optional trailing Attention."""
+
+    def __init__(self, in_channels: int, out_channels: int | None = None,
+                 with_non_local: bool = False, use_kernel: bool = True):
+        super().__init__()
+        out_ch = out_channels if out_channels is not None else in_channels
+        self.bn1 = nn.BatchNorm2d(in_channels, eps=1e-5)
+        self.conv1 = nn.Conv2d(in_channels, out_ch, 3, padding=1)
+        self.bn2 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_identity = (nn.Conv2d(in_channels, out_ch, 1)
+                              if in_channels != out_ch else None)
+        self.attn = Attention(out_ch, use_kernel) if with_non_local else None
+
+    def init_weights(self, generator):
+        _init_bn(self.bn1)
+        _init_bn(self.bn2)
+        _init_conv(self.conv1, generator, RESIDUAL_GAIN)
+        _init_conv(self.conv2, generator, RESIDUAL_GAIN)
+        if self.conv_identity is not None:
+            _init_conv(self.conv_identity, generator)
+
+    def forward(self, x):
+        h = torch.relu(self.bn1(x))
+        h = self.conv1(upsample_nearest_2d(h))
+        h = self.conv2(torch.relu(self.bn2(h)))
+        identity = upsample_nearest_2d(x)
+        if self.conv_identity is not None:
+            identity = self.conv_identity(identity)
+        h = identity + h
+        if self.attn is not None:
+            h = self.attn(h)
+        return h
+
+
+class RenderBlock(nn.Module):
+    """BN-ReLU-conv3x3-Tanh to RGB."""
+
+    def __init__(self, in_channels: int, out_channels: int = 3):
+        super().__init__()
+        self.bn = nn.BatchNorm2d(in_channels, eps=1e-5)
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+    def init_weights(self, generator):
+        _init_bn(self.bn)
+        _init_conv(self.conv, generator)
+
+    def forward(self, x):
+        return torch.tanh(self.conv(torch.relu(self.bn(x))))
