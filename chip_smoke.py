@@ -7,15 +7,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN, so
    the port's float32 runs in float32.
 2. build: every CUDA kernel of the port, from txt2vid_tpu_torch/csrc, with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shape, the parity shapes of tpu_checks.py and a ragged shape,
-   in float32 and bfloat16; then its time beside the plain version's and one
-   PyTorch library call's that computes the same function.
+3. kernels: each kernel (K1 the attention forward, K2 and K3 its backward)
+   against its plain PyTorch version on the card, at the main paths' shapes,
+   the parity shapes of tpu_checks.py and a ragged shape, in float32 and
+   bfloat16; then its time beside the plain version's and one PyTorch library
+   call's that computes the same function. K1's record keeps the serving shape
+   and the serve phase's launches; its training shape is nested under
+   "train_shape". K2 and K3 are timed at the training shape.
 4. serve: the caption->video service (txt2vid_tpu_torch.serve) at the width of
    the flagship conditional model, weights random from --seed and every
    attention gamma set to 1, answering 20 captions of mixed length in chunks of
    8. Launch counts are zeroed just before and read just after; the same
    requests with every kernel replaced by its plain version must agree.
+5. train: the conditional TGANv2 train step of txt2vid_tpu_torch.bench (batch
+   40, 16 frames, frame sizes 8/16/32/64, the flagship G and D at full width,
+   the caption encoder in the loop), parameters random from --seed by the
+   bench's rule and every attention gamma set to 1. One step from a copied
+   state with the kernels and one under no_kernel() must agree; then 3 steps
+   with the launch counts zeroed just before, each launching K1 17 times and
+   K2 and K3 13 times, with finite losses; every G and D parameter with a
+   nonzero gradient must have moved, the attention blocks' among them.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -23,6 +34,7 @@ The line before the last is {"kernels": [...]}; the last is
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -30,28 +42,49 @@ import time
 
 import torch
 
+from txt2vid_tpu_torch import bench
 from txt2vid_tpu_torch.data import build_vocab
 from txt2vid_tpu_torch.data.synthetic import moving_digit_captions
-from txt2vid_tpu_torch.models.layers import Attention
+from txt2vid_tpu_torch.models.layers import Attention, Attention3d
 from txt2vid_tpu_torch.ops import _build
 from txt2vid_tpu_torch.ops.attention import no_kernel
-from txt2vid_tpu_torch.ops.fused_attention import fused_attention, fused_attention_reference
+from txt2vid_tpu_torch.ops.fused_attention import (
+    attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
+    attention_bwd_dq_reference, attention_delta, fused_attention,
+    fused_attention_reference)
 from txt2vid_tpu_torch.serve import GeneratorService
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth, and float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
-# (B, N, M, d, dv): the generator's up1 attention at batch 8 (128 frames of
-# 32x32), the parity shapes of tpu_checks.py, and a shape no tile divides
+# (B, N, M, d, dv): the generator's up1 attention serving batch 8 (128 frames
+# of 32x32) and training batch 40 (after two subsamples, 40 frames of 32x32),
+# the discriminator's Attention3d at the training pyramid's four scales, the
+# parity shapes of tpu_checks.py, and shapes no tile divides
 SERVE_SHAPE = (128, 1024, 256, 4, 16)
-ATTENTION_SHAPES = [SERVE_SHAPE, (2, 1024, 256, 16, 64), (4, 4096, 1024, 16, 64),
-                    (2, 1024, 256, 4, 16), (1, 64, 16, 16, 64), (3, 1000, 250, 4, 16)]
+TRAIN_SHAPE = (40, 1024, 256, 4, 16)
+D_TRAIN_SHAPES = [(40, 16, 4, 16, 64), (20, 32, 8, 16, 64), (10, 64, 16, 16, 64),
+                  (5, 256, 64, 16, 64)]
+ATTENTION_SHAPES = [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES, (2, 1024, 256, 16, 64),
+                    (4, 4096, 1024, 16, 64), (2, 1024, 256, 4, 16), (1, 64, 16, 16, 64),
+                    (3, 1000, 250, 4, 16), (2, 45, 15, 16, 64)]
 # float32: max|diff| <= 1e-4 * max(1, max|ref|), summation order only. bfloat16:
 # the same bf16 inputs through the plain f32 version; the kernel rounds o to
 # bf16 (8 bits of mantissa, 4e-3 relative), so o takes 1e-2, lse (f32) 1e-4.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-4)}
+# backward: float32 1e-4 * scale (summation order); bfloat16 1e-2 * scale, the
+# kernel rounding its f32 result to bf16 once
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NUM_CAPTIONS, BATCH = 20, 8
+# launches per train step, counted from the code: K1 1 (generator) + 8 (D
+# phase: real_cc and fake_cc at 4 scales; real_ic reuses real_cc's features)
+# + 4 (the updated D's real predictions) + 4 (the G phase's fake pass); K2 and
+# K3 8 (the D backward) + 4 (through D to the fakes) + 1 (generator)
+TRAIN_LAUNCHES = {"attention_fwd": 17, "attention_bwd_dq": 13, "attention_bwd_dkv": 13}
+TRAIN_STEPS = 3
+KERNELS = {"attention_fwd": fused_attention, "attention_bwd_dq": attention_bwd_dq,
+           "attention_bwd_dkv": attention_bwd_dkv}
 
 
 def fail(msg):
@@ -104,6 +137,31 @@ def attention_bound_ms(shape, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def bwd_bound_ms(shape, dtype, kernel):
+    """The least time for K2 (dtheta) or K3 (dphi, dg): theta, phi, g, do in
+    the input dtype and lse, delta in f32 read once, the outputs written once,
+    over HBM bandwidth; or 2*B*N*M*(2d + dv) (K2) / 2*B*N*M*(2d + 2dv) (K3)
+    float32 operations over the f32 peak; whichever is larger."""
+    b, n, m, d, dv = shape
+    isz = torch.finfo(dtype).bits // 8
+    read = isz * (b * n * d + b * m * d + b * m * dv + b * n * dv) + 4 * 2 * b * n
+    if kernel == "attention_bwd_dq":
+        nbytes, flops = read + isz * b * n * d, 2 * b * n * m * (2 * d + dv)
+    else:
+        nbytes, flops = read + isz * (b * m * d + b * m * dv), 2 * b * n * m * (2 * d + 2 * dv)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def zero_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def counts():
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -128,8 +186,9 @@ def phase_build():
 
 def phase_attention(seed):
     """K1 against its plain version at every shape and dtype; times at the
-    serving shape. Returns the kernel's record for the JSON line."""
-    serve_err = None
+    serving and the training shape. Returns the kernel's record for the JSON
+    line (the serving shape's numbers, the training shape's nested)."""
+    serve_err = train_err = None
     for shape in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             theta, phi, g = attention_inputs(shape, dtype, seed)
@@ -150,23 +209,102 @@ def phase_attention(seed):
             check(ok, f"attention_fwd disagrees with its plain version at {shape} {dtype}")
             if shape == SERVE_SHAPE and dtype == torch.float32:
                 serve_err = err_o
+            if shape == TRAIN_SHAPE and dtype == torch.float32:
+                train_err = err_o
 
-    theta, phi, g = attention_inputs(SERVE_SHAPE, torch.float32, seed)
+    record = time_forward(SERVE_SHAPE, seed)
+    record["max_abs_err"] = serve_err
+    train = time_forward(TRAIN_SHAPE, seed)
+    train["max_abs_err"] = train_err
+    return {"name": "attention_fwd", "route": "cuda",
+            "source": "txt2vid_tpu_torch/csrc/attention_fwd.cu",
+            "replaces": "txt2vid_tpu/ops/pallas_attention.py:43",
+            "launches": None, **record, "train_shape": train}
+
+
+def time_forward(shape, seed):
+    """K1's float32 time at `shape` beside its plain version's, SDPA's and its
+    bound."""
+    theta, phi, g = attention_inputs(shape, torch.float32, seed)
     ms = cuda_ms(lambda: fused_attention(theta, phi, g))
     plain_ms = cuda_ms(lambda: fused_attention_reference(theta, phi, g))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(theta, phi, g, scale=1.0)
     sdpa_err, _ = max_err(fused_attention_reference(theta, phi, g), sdpa())
     library_ms = cuda_ms(sdpa)
-    bound_ms, bound_by = attention_bound_ms(SERVE_SHAPE, torch.float32)
-    print(f"phase kernels: attention_fwd at {SERVE_SHAPE} float32: kernel {ms:.4f} ms, "
+    bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
+    print(f"phase kernels: attention_fwd at {shape} float32: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
           f"(its max|diff| {sdpa_err:.3g}), bound {bound_ms:.4f} ms by {bound_by}")
-    return {"name": "attention_fwd", "route": "cuda",
-            "source": "txt2vid_tpu_torch/csrc/attention_fwd.cu",
-            "replaces": "txt2vid_tpu/ops/pallas_attention.py:43",
-            "launches": None, "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "shape": list(SERVE_SHAPE), "dtype": "float32"}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": list(shape), "dtype": "float32"}
+
+
+def bwd_inputs(shape, dtype, seed):
+    """(theta, phi, g, do, lse, delta): forward inputs, lse from K1, a random
+    output gradient and delta = rowsum(do * o)."""
+    theta, phi, g = attention_inputs(shape, dtype, seed)
+    o, lse = fused_attention(theta, phi, g, return_lse=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    return theta, phi, g, do, lse, attention_delta(o, do)
+
+
+def phase_attention_bwd(seed):
+    """K2 and K3 against their plain versions at every shape and dtype; times
+    at the generator's training shape. Returns their records."""
+    train_err = {}
+    for shape in ATTENTION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = bwd_inputs(shape, dtype, seed)
+            dtheta = attention_bwd_dq(*args)
+            dphi, dg = attention_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            ref_dphi, ref_dg = attention_bwd_dkv_reference(*args)
+            pairs = {"dtheta": (attention_bwd_dq_reference(*args), dtheta),
+                     "dphi": (ref_dphi, dphi), "dg": (ref_dg, dg)}
+            errs = {}
+            for what, (ref, got) in pairs.items():
+                check(got.dtype == dtype and got.shape == ref.shape,
+                      f"{what} {shape} {dtype}: {got.dtype} {tuple(got.shape)}")
+                errs[what] = max_err(ref, got)
+            ok = all(e <= BWD_TOL[dtype] * sc for e, sc in errs.values())
+            print(f"phase kernels: attention_bwd {shape} {str(dtype)[6:]}: " + ", ".join(
+                f"{w} err {e:.3g} (tol {BWD_TOL[dtype] * sc:.3g})" for w, (e, sc) in errs.items())
+                + f" {'ok' if ok else 'DISAGREES'}")
+            check(ok, f"attention_bwd disagrees with its plain version at {shape} {dtype}")
+            if shape == TRAIN_SHAPE and dtype == torch.float32:
+                train_err = {w: e for w, (e, _) in errs.items()}
+
+    args = bwd_inputs(TRAIN_SHAPE, torch.float32, seed)
+    theta, phi, g, do = args[:4]
+    q, k, v = (t.detach().requires_grad_() for t in (theta, phi, g))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+    library = lambda: torch.autograd.grad(o_lib, (q, k, v), do, retain_graph=True)
+    lib_err = max(max_err(r, l)[0] for r, l in zip(
+        (attention_bwd_dq_reference(*args), *attention_bwd_dkv_reference(*args)), library()))
+    library_ms = cuda_ms(library)
+    records = []
+    for name, kernel, plain, outs in (
+            ("attention_bwd_dq", attention_bwd_dq, attention_bwd_dq_reference, ("dtheta",)),
+            ("attention_bwd_dkv", attention_bwd_dkv, attention_bwd_dkv_reference,
+             ("dphi", "dg"))):
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args))
+        bound_ms, bound_by = bwd_bound_ms(TRAIN_SHAPE, torch.float32, name)
+        print(f"phase kernels: {name} at {TRAIN_SHAPE} float32: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        records.append({
+            "name": name, "route": "cuda", "source": "txt2vid_tpu_torch/csrc/attention_bwd.cu",
+            "replaces": ("txt2vid_tpu/ops/pallas_attention.py:141" if name == "attention_bwd_dq"
+                         else "txt2vid_tpu/ops/pallas_attention.py:171"),
+            "launches": None, "max_abs_err": max(train_err[w] for w in outs), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_computes": "dtheta, dphi and dg together",
+            "shape": list(TRAIN_SHAPE), "dtype": "float32"})
+    print(f"phase kernels: scaled_dot_product_attention backward (dtheta, dphi, dg) at "
+          f"{TRAIN_SHAPE} float32: {library_ms:.4f} ms (its max|diff| {lib_err:.3g}); "
+          f"K2 + K3 {records[0]['ms'] + records[1]['ms']:.4f} ms")
+    return records
 
 
 def mixed_captions(n, seed):
@@ -228,6 +366,90 @@ def phase_serve(seed):
     return launches, ms_per_video
 
 
+def leaf_scales(moments):
+    """name -> max|leaf|, floored at 1e-2 * the phase's largest: a gradient
+    that is zero in exact arithmetic (a conv bias before a BatchNorm) holds
+    float noise that differs between any two runs."""
+    top = max(float(v.abs().max()) for v in moments.values())
+    return {k: max(float(v.abs().max()), 1e-2 * top) for k, v in moments.items()}
+
+
+def phase_train(seed):
+    """The bench's train step on the card. Returns the launch counts of its
+    TRAIN_STEPS steps."""
+    step, batch = bench.build(seed, bench.BATCH, "cuda")
+    gan = step.gan
+    modules = {"G": gan.gen, "D": gan.discrims[0]}
+    opts = {"G": step.opt_g, "D": step.opt_d}
+    attns = [m for mod in modules.values() for m in mod.modules()
+             if isinstance(m, (Attention, Attention3d))]
+    check(len(attns) == 2, f"{len(attns)} attention blocks in G and D")
+    with torch.no_grad():
+        for m in attns:
+            m.gamma.fill_(1.0)
+    start = {k: {n: t.clone() for n, t in m.state_dict().items()}
+             for k, m in modules.items()}
+
+    def restore():
+        for k, m in modules.items():
+            m.load_state_dict(start[k])
+            opts[k].state.clear()
+        step.step = 0
+
+    def moments():
+        return {k: {n: opts[k].state[p]["exp_avg"].clone()
+                    for n, p in modules[k].named_parameters()} for k in modules}
+
+    draws = step.draw(bench.BATCH, "cuda")
+    m_kernel = {k: float(v) for k, v in step(batch, draws).items()}
+    mom_kernel = moments()
+    restore()
+    with no_kernel():
+        m_plain = {k: float(v) for k, v in step(batch, draws).items()}
+    mom_plain = moments()
+    restore()
+    loss_err = max(abs(m_kernel[k] - m_plain[k]) / abs(m_plain[k])
+                   for k in ("loss_d", "loss_g"))
+    worst = 0.0
+    for side in modules:
+        scales = leaf_scales(mom_plain[side])
+        for n, ref in mom_plain[side].items():
+            worst = max(worst, float((ref - mom_kernel[side][n]).abs().max()) / scales[n])
+    print(f"phase train: kernels vs no_kernel(), one step from one state: {m_kernel} vs "
+          f"{m_plain}; losses rel diff {loss_err:.3g} (tol 1e-4), Adam first moments "
+          f"max|diff| / leaf scale {worst:.3g} (tol 1e-3)")
+    check(loss_err <= 1e-4 and worst <= 1e-3, "the train step disagrees with no_kernel()")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = counts()
+        metrics = {k: float(v) for k, v in step(batch).items()}    # host fetch per step
+        launched = {k: v - before[k] for k, v in counts().items()}
+        print(f"phase train: step {i}: {metrics}, launches {launched}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"step {i}: non-finite {metrics}")
+        check(launched == TRAIN_LAUNCHES, f"step {i}: launches {launched}, "
+              f"expected {TRAIN_LAUNCHES}")
+    dt = time.perf_counter() - t0
+    totals = counts()
+    check(all(p.grad is not None and bool(p.grad.any()) for a in attns
+              for p in a.parameters()), "an attention parameter has no gradient")
+    for side, m in modules.items():
+        live = {n for n, p in m.named_parameters() if p.grad is not None and bool(p.grad.any())}
+        moved = {n for n, p in m.named_parameters()
+                 if not torch.equal(p.detach(), start[side][n])}
+        check(live <= moved, f"{side} parameters with a gradient did not move: "
+              f"{sorted(live - moved)}")
+        print(f"phase train: {len(moved)} of {len(list(m.parameters()))} {side} tensors "
+              f"moved, every one of the {len(live)} with a nonzero gradient")
+    print(f"phase train: batch {bench.BATCH}, {TRAIN_STEPS} steps in {dt:.3f} s, "
+          f"{TRAIN_STEPS / dt:.3f} steps/s (each ended by a host fetch), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {totals}")
+    return totals
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -237,10 +459,16 @@ def main():
 
     name, smi = phase_device()
     phase_build()
-    record = phase_attention(args.seed)
-    record["launches"], _ = phase_serve(args.seed)
+    records = [phase_attention(args.seed), *phase_attention_bwd(args.seed)]
+    serve_launches, _ = phase_serve(args.seed)
+    train = phase_train(args.seed)
+    records[0]["launches"] = serve_launches
+    for kernel, r in (("attention_fwd", records[0]["train_shape"]),
+                      *((r["name"], r) for r in records[1:])):
+        r["launches"] = train[kernel]
+        r["launches_per_step"] = TRAIN_LAUNCHES[kernel]
     print(smi)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

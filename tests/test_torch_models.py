@@ -196,9 +196,18 @@ class TestMultiScaleGen:
         assert got[-1].shape == (2, 4, size, size, 3)
 
     def test_train_mode_waits_for_training_slice(self):
-        port = tganv2.MultiScaleGen(**SMALL_GEN)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            port(torch.zeros(2, 16), torch.zeros(2, 16), train=True)
+        """The training slice has landed: train=True renders every scale, the
+        batch and frames halving before each block after the base, with the
+        subsample phases drawn from the given generator (see
+        test_torch_train_models for the parity with JAX)."""
+        port = tganv2.MultiScaleGen(**SMALL_GEN).train()
+        z, cond = torch.randn(4, 16), torch.randn(4, 16)
+        with torch.no_grad():
+            a = port(z, cond, train=True, generator=torch.Generator().manual_seed(3))
+            b = port(z, cond, train=True, generator=torch.Generator().manual_seed(3))
+        assert [tuple(v.shape) for v in a] == [(4, 4, 8, 8, 3), (2, 2, 16, 16, 3),
+                                               (1, 1, 32, 32, 3)]
+        assert all(torch.allclose(x, y, atol=1e-6) for x, y in zip(a, b))
 
     def test_flagship_partial(self):
         from txt2vid_tpu_torch.models import tganv2_cond

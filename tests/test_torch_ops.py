@@ -22,7 +22,8 @@ from txt2vid_tpu.ops.pallas_attention import fused_attention as jax_fused_attent
 from txt2vid_tpu_torch.ops import attention as port_attention
 from txt2vid_tpu_torch.ops import initializers as port_init
 from txt2vid_tpu_torch.ops import pooling as port_pooling
-from txt2vid_tpu_torch.ops.fused_attention import (SUPPORTED_DV, fused_attention,
+from txt2vid_tpu_torch.ops.fused_attention import (SUPPORTED_DV, _check_kernel,
+                                                   fused_attention,
                                                    fused_attention_reference)
 
 
@@ -173,8 +174,13 @@ class TestDispatch:
     def test_wrapper_rejects_what_the_kernel_does_not_take(self, bad):
         theta, phi, g = (torch.from_numpy(a) for a in _attention_inputs(15, 2, 16, 4, 4, 16))
         if bad == "dv":
-            g = torch.zeros(2, 4, 8)
-        elif bad == "dtype":
+            # CPU tensors take the plain version at any width; the kernels'
+            # own check refuses a (d, dv) they are not built for
+            assert fused_attention(theta, phi, torch.zeros(2, 4, 8)).shape == (2, 16, 8)
+            with pytest.raises(ValueError, match="no kernel"):
+                _check_kernel(2, 16, 4, 4, 8)
+            return
+        if bad == "dtype":
             theta, phi, g = theta.double(), phi.double(), g.double()
         elif bad == "batch":
             phi = phi[:1]

@@ -196,7 +196,12 @@ class TestStandsAlone:
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'txt2vid_tpu')]\n"
             "assert not bad, bad\n"
-            "print(len(names))\n")
+            "print(' '.join(names))\n")
         res = _run_python(code)
         assert res.returncode == 0, res.stderr
-        assert int(res.stdout.strip()) >= 15
+        names = set(res.stdout.split())
+        assert len(names) >= 22
+        # the training slice's modules, the port's bench included
+        assert {f"txt2vid_tpu_torch.{m}" for m in (
+            "bench", "gan.train_step", "gan.losses", "gan.cond_gan", "models.resnet3d",
+            "ops.subsample", "utils.misc")} <= names

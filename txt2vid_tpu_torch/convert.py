@@ -4,8 +4,10 @@ The caller hands over the trees as nested dicts of numpy arrays (after
 `jax.device_get`); nothing here imports JAX. Mappings:
 
 - Dense kernel (in, out) -> weight (out, in); Conv kernel (kh, kw, I, O) ->
-  (O, I, kh, kw). The generator's fc keeps its output order (fm_h, fm_w, C):
-  the port reshapes it that way before going to NCHW.
+  (O, I, kh, kw), 3-D (kd, kh, kw, I, O) -> (O, I, kd, kh, kw). The
+  generator's fc keeps its output order (fm_h, fm_w, C): the port reshapes it
+  that way before going to NCHW. The discriminator's `fc` over [features ‖
+  cond] keeps that input order too.
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
   (eps 1e-5 in both frameworks).
 - ConvLSTM: the fused i,f,g,o kernels as they are (`clstm/wx0`,
@@ -16,8 +18,12 @@ The caller hands over the trees as nested dicts of numpy arrays (after
   (transposes concatenated i, f, g, o), `weight_hh_l{i}[_reverse]` likewise,
   `bias_ih` = 0 and `bias_hh` = the h-biases.
 
-Any key that is not mapped raises, except the decoder's `to_vocab`, which is not
-on the serving path.
+- Discriminator (`MultiScaleDiscrim`): `discrim` or `discrim{i}` /
+  `stem_conv1|stem_conv2|stem_skip`, `down{i}/conv1|conv2|conv_identity`,
+  `attn/theta|phi|g|o` and `attn/gamma`, `fc_uncond`, `fc`, `cond_proj`.
+
+Any key that is not mapped raises, except the decoder's `to_vocab`, which is on
+neither the serving nor the training path.
 """
 
 import re
@@ -30,6 +36,10 @@ _GEN_PARAM = re.compile(
     r"|(?:base/)?up\d+/(?:bn1|bn2|conv1|conv2|conv_identity|attn/(?:theta|phi|g|o))"
     r"|render(?:_base|\d+)/(?:bn|conv))/(?:kernel|bias|scale)"
     r"|clstm/wx0_bias|(?:base/)?up\d+/attn/gamma)$")
+_DISC_PARAM = re.compile(
+    r"^discrim\d*/(?:(?:stem_conv1|stem_conv2|stem_skip|fc_uncond|fc|cond_proj"
+    r"|down\d+/(?:conv1|conv2|conv_identity)|attn/(?:theta|phi|g|o))/(?:kernel|bias)"
+    r"|attn/gamma)$")
 _GEN_STAT = re.compile(r"^(?:(?:base/)?up\d+/bn[12]|render(?:_base|\d+)/bn)/(?:mean|var)$")
 _ENC_CELL = re.compile(r"^encoder/l(\d+)_(fwd|bwd)/cell/([ih])([ifgo])/(kernel|bias)$")
 _ENC_SKIP = re.compile(r"^encoder/to_vocab/(?:kernel|bias)$")
@@ -50,6 +60,8 @@ def _tensor(a):
 
 
 def _kernel(a):
+    if a.ndim == 5:       # (kd, kh, kw, I, O) -> (O, I, kd, kh, kw)
+        return a.transpose(4, 3, 0, 1, 2)
     if a.ndim == 4:       # (kh, kw, I, O) -> (O, I, kh, kw)
         return a.transpose(3, 2, 0, 1)
     if a.ndim == 2:       # (in, out) -> (out, in)
@@ -57,18 +69,23 @@ def _kernel(a):
     raise ValueError(f"kernel of rank {a.ndim}")
 
 
-def jax_to_torch_generator(params, batch_stats=None) -> dict:
-    """Generator `params` and `batch_stats` trees -> MultiScaleGen state dict."""
+def _params(params, pattern, what) -> dict:
     sd = {}
     for path, a in _flatten(params):
-        if not _GEN_PARAM.match(path):
-            raise KeyError(f"unmapped generator param {path}")
+        if not pattern.match(path):
+            raise KeyError(f"unmapped {what} param {path}")
         *mods, leaf = path.split("/")
         if leaf == "kernel":
             leaf, a = "weight", _kernel(a)
         elif leaf == "scale":
             leaf = "weight"
         sd[".".join(mods + [leaf])] = _tensor(a)
+    return sd
+
+
+def jax_to_torch_generator(params, batch_stats=None) -> dict:
+    """Generator `params` and `batch_stats` trees -> MultiScaleGen state dict."""
+    sd = _params(params, _GEN_PARAM, "generator")
     for path, a in _flatten(batch_stats or {}):
         if not _GEN_STAT.match(path):
             raise KeyError(f"unmapped generator batch stat {path}")
@@ -77,6 +94,11 @@ def jax_to_torch_generator(params, batch_stats=None) -> dict:
         sd[f"{module}.running_{leaf}"] = _tensor(a)
         sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def jax_to_torch_discriminator(params) -> dict:
+    """MultiScaleDiscrim `params` tree -> the port's MultiScaleDiscrim state dict."""
+    return _params(params, _DISC_PARAM, "discriminator")
 
 
 def jax_to_torch_encoder(params) -> dict:

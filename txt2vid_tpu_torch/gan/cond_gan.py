@@ -1,17 +1,132 @@
-"""Conditional GAN facade, serving half (counterpart of
-txt2vid_tpu/gan/cond_gan.py:63-80): holds the generator and the caption encoder.
-The discriminators and loss assembly wait for the training slice."""
+"""Conditional GAN facade (counterpart of txt2vid_tpu/gan/cond_gan.py:38-309):
+holds the generator, the discriminators and the caption encoder, and
+assembles the losses.
+
+Pairwise conditional D loss: real_cc = D(x_r, c_r), real_ic = D(x_r, c_f)
+(reusing real_cc's features), fake_cc = D(x_f, c_r); D loss = (mean
+unconditional pairing + mean of the two conditional pairings) / 2. The G loss
+re-forwards D on the fakes against cached real predictions. Mismatched
+captions are a derangement of the scale-0 cond, truncated per scale.
+Discriminators are MultiScaleDiscrims, whose output is a list of per-scale
+triples (uncond, cond | None, features). The gradient penalty comes in a
+later slice.
+"""
+
+import torch
+
+
+def _no_gradient_penalty(gp_lambda, gp_only):
+    if gp_lambda > 0 or gp_only:
+        raise NotImplementedError("the gradient penalty (gp_lambda > 0, gp_only) "
+                                  "comes in a later slice of the port")
 
 
 class CondGan:
-    def __init__(self, gen, cond_encoder=None):
+    def __init__(self, gen, cond_encoder=None, discrims=None, discrim_lambdas=None):
         self.gen = gen
         self.cond_encoder = cond_encoder
+        self.discrims = list(discrims or [])
+        self.discrim_lambdas = discrim_lambdas
 
-    def generate(self, z, cond=None, train: bool = False):
-        """Run the generator; returns a LIST of scales (B, T, H, W, C)."""
-        return self.gen(z, cond=cond, train=train)
+    def generate(self, z, cond=None, train: bool = False, phases=None, generator=None):
+        """Run the generator; returns a LIST of scales (B, T, H, W, C). In
+        training the subsample phases come from `phases` or `generator`."""
+        if not train:
+            return self.gen(z, cond=cond, train=False)
+        return self.gen(z, cond=cond, train=True, phases=phases, generator=generator)
 
     def encode(self, captions, lengths):
         """Caption encoding -> (B, cond_dim) sentence vectors (hn)."""
         return self.cond_encoder.encode(captions, lengths)[2]
+
+    def apply_discrim(self, i, x_scales, cond_scales=None, computed_features=None):
+        """Apply discriminator i (a MultiScaleDiscrim: the port has no
+        single-scale discriminator yet); returns its per-scale triples."""
+        return self.discrims[i](x_scales, cond=cond_scales,
+                                computed_features=computed_features)
+
+    @staticmethod
+    def make_fake_conds(cond_scales, perm):
+        """Mismatched captions: the scale-0 cond permuted by the derangement
+        `perm` (utils.misc.gen_perm_device), truncated to each scale's batch."""
+        fake0 = cond_scales[0][perm.to(cond_scales[0].device)]
+        return [fake0[: c.shape[0]] for c in cond_scales]
+
+    def discrim_forward(self, i, real_scales=None, fake_scales=None, cond_scales=None,
+                        fake_cond_scales=None, loss=None, gp_lambda: float = -1.0,
+                        gp_only: bool = False):
+        """Per-discriminator D-phase loss. Returns (loss | None, fake_pred, real_pred)."""
+        _no_gradient_penalty(gp_lambda, gp_only)
+        l = fake_pred = real_pred = None
+        if cond_scales is not None:
+            real_cc = self.apply_discrim(i, real_scales, cond_scales)
+            real_pred = real_cc
+            if loss is not None:
+                if fake_cond_scales is None:
+                    raise ValueError("a conditional D loss needs fake_cond_scales")
+                real_ic = self.apply_discrim(i, real_scales, fake_cond_scales,
+                                             computed_features=[t[2] for t in real_cc])
+                fake_cc = self.apply_discrim(i, fake_scales, cond_scales)
+                fake_pred = fake_cc
+                loss_c1 = torch.stack([loss.discrim_loss(fake=f[1], real=r[1])
+                                       for f, r in zip(fake_cc, real_cc)])
+                loss_c2 = torch.stack([loss.discrim_loss(fake=f[1], real=r[1])
+                                       for f, r in zip(real_ic, real_cc)])
+                loss_cond = (loss_c1.mean() + loss_c2.mean()) / 2.0
+                loss_uncond = torch.stack([loss.discrim_loss(fake=f[0], real=r[0])
+                                           for f, r in zip(fake_cc, real_cc)]).mean()
+                l = (loss_uncond + loss_cond) / 2.0
+        else:
+            if real_scales is not None:
+                real_pred = self.apply_discrim(i, real_scales)
+            if fake_scales is not None:
+                fake_pred = self.apply_discrim(i, fake_scales)
+            if loss is not None and fake_pred is not None and real_pred is not None:
+                l = torch.stack([loss.discrim_loss(fake=f[0], real=r[0])
+                                 for f, r in zip(fake_pred, real_pred)]).mean()
+        return l, fake_pred, real_pred
+
+    def all_discrim_forward(self, real_scales=None, fake_scales=None, cond_scales=None,
+                            loss=None, perms=None, gp_lambda: float = -1.0,
+                            gp_only: bool = False):
+        """Loop over discriminators; perms[i] is discriminator i's derangement
+        (needed with conds and a loss). Returns (losses, fake_preds, real_preds)."""
+        losses, fake_preds, real_preds = [], [], []
+        for i in range(len(self.discrims)):
+            fake_conds = None
+            if cond_scales is not None and loss is not None:
+                fake_conds = self.make_fake_conds(cond_scales, perms[i])
+            l, f, r = self.discrim_forward(
+                i, real_scales=real_scales, fake_scales=fake_scales,
+                cond_scales=cond_scales, fake_cond_scales=fake_conds, loss=loss,
+                gp_lambda=gp_lambda, gp_only=gp_only)
+            losses.append(l)
+            fake_preds.append(f)
+            real_preds.append(r)
+        return losses, fake_preds, real_preds
+
+    def weighted_sum(self, losses):
+        """Mean or lambda-weighted sum over per-discriminator losses."""
+        stacked = torch.stack(losses)
+        if self.discrim_lambdas is None:
+            return stacked.mean()
+        lambdas = torch.as_tensor(self.discrim_lambdas, dtype=stacked.dtype,
+                                  device=stacked.device)
+        return (lambdas * stacked).sum()
+
+    def gen_loss(self, fake_scales, real_preds, cond_scales=None, loss=None):
+        """G-phase loss against cached real predictions."""
+        losses = []
+        for i in range(len(self.discrims)):
+            fake_cc = self.apply_discrim(i, fake_scales, cond_scales)
+            r = real_preds[i]
+            if cond_scales is None:
+                losses.append(torch.stack([loss.gen_loss(fake=f[0], real=rr[0])
+                                           for f, rr in zip(fake_cc, r)]).mean())
+                continue
+            loss_cond = torch.stack([loss.gen_loss(fake=f[1], real=rr[1])
+                                     for f, rr in zip(fake_cc, r)]).mean()
+            loss_uncond = torch.stack([loss.gen_loss(fake=f[0], real=rr[0])
+                                       for f, rr in zip(fake_cc, r)]).mean()
+            losses.append((loss_cond + loss_uncond) / 2.0)
+        return self.weighted_sum(losses)

@@ -1,18 +1,23 @@
-"""Generator building blocks (counterpart of txt2vid_tpu/models/layers.py), NCHW.
+"""Building blocks (counterpart of txt2vid_tpu/models/layers.py): NCHW for the
+generator's 2-D blocks, NCDHW for the discriminator's 3-D ones.
 
-The non-local `Attention` routes its softmax core through the fused CUDA kernel
-for CUDA tensors (ops/fused_attention.py) and the plain version for CPU tensors.
-Module and parameter names follow the JAX package, so txt2vid_tpu_torch.convert
-maps a flax tree onto these state dicts by name. Attention3d and DownBlock (the
-discriminator's blocks) wait for the training slice.
+The non-local `Attention` / `Attention3d` route their softmax core through the
+fused CUDA kernels for CUDA tensors (ops/attention.py) and their plain versions
+for CPU tensors. Module and parameter names follow the JAX package, so
+txt2vid_tpu_torch.convert maps a flax tree onto these state dicts by name.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from txt2vid_tpu_torch.ops.attention import attention_core_auto
 from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, xavier_normal_
-from txt2vid_tpu_torch.ops.pooling import max_pool_2d, upsample_nearest_2d
+from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
+                                           max_pool_3d, upsample_nearest_2d)
+
+# flax BatchNorm(momentum=0.9): running = 0.9 * running + 0.1 * batch statistic
+_FLAX_MOMENTUM = 0.9
 
 
 def _init_conv(conv, generator, gain: float = 1.0):
@@ -21,14 +26,31 @@ def _init_conv(conv, generator, gain: float = 1.0):
         nn.init.zeros_(conv.bias)
 
 
-def _init_bn(bn):
-    bn.reset_parameters()     # weight 1, bias 0, running mean 0 / var 1
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's training semantics (layers.py:107-108), under
+    torch's state-dict names. Training mode normalises with the batch mean and
+    the biased batch variance and updates the running statistics as
+    0.9 * old + 0.1 * batch, the variance biased too (torch's own update uses
+    momentum 0.1 and the unbiased variance). Eval mode uses the running
+    statistics."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(_FLAX_MOMENTUM).add_(mean, alpha=1 - _FLAX_MOMENTUM)
+            self.running_var.mul_(_FLAX_MOMENTUM).add_(var, alpha=1 - _FLAX_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def init_weights(self, generator):
+        self.reset_parameters()     # weight 1, bias 0, running mean 0 / var 1
 
 
 def _tokens(x):
-    """(B, C, H, W) -> contiguous (B, H*W, C), rows in the JAX reshape order."""
-    b, c, h, w = x.shape
-    return x.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
+    """(B, C, *spatial) -> contiguous (B, prod(spatial), C), rows in the JAX
+    reshape order ((h, w) or (t, h, w))."""
+    return x.movedim(1, -1).reshape(x.shape[0], -1, x.shape[1]).contiguous()
 
 
 class Attention(nn.Module):
@@ -60,6 +82,35 @@ class Attention(nn.Module):
         return self.gamma.to(x.dtype) * self.o(o) + x
 
 
+class Attention3d(nn.Module):
+    """Video non-local block (layers.py:55-85): Attention with Conv3d
+    projections, a [1, 2, 2] max-pool on phi/g and attention over T*H*W x
+    T*H*W/4, tokens in (t, h, w) order. Input (B, C, T, H, W)."""
+
+    def __init__(self, ch: int, use_kernel: bool = True):
+        super().__init__()
+        self.use_kernel = use_kernel
+        self.theta = nn.Conv3d(ch, ch // 8, 1, bias=False)
+        self.phi = nn.Conv3d(ch, ch // 8, 1, bias=False)
+        self.g = nn.Conv3d(ch, ch // 2, 1, bias=False)
+        self.o = nn.Conv3d(ch // 2, ch, 1, bias=False)
+        self.gamma = nn.Parameter(torch.zeros(()))
+
+    def init_weights(self, generator):
+        for conv in (self.theta, self.phi, self.g, self.o):
+            _init_conv(conv, generator)
+        nn.init.zeros_(self.gamma)
+
+    def forward(self, x):
+        b, _, t, h, w = x.shape
+        o = attention_core_auto(_tokens(self.theta(x)),
+                                _tokens(max_pool_3d(self.phi(x))),
+                                _tokens(max_pool_3d(self.g(x))),
+                                use_kernel=self.use_kernel)          # (B, N, C/2)
+        o = o.reshape(b, t, h, w, -1).permute(0, 4, 1, 2, 3)
+        return self.gamma.to(x.dtype) * self.o(o) + x
+
+
 class UpBlock(nn.Module):
     """Pre-activation residual 2x-upsample block: main = BN-ReLU-Upsample-
     conv3x3-BN-ReLU-conv3x3 (sqrt(2)-gain init), identity = Upsample (+1x1 conv
@@ -69,17 +120,15 @@ class UpBlock(nn.Module):
                  with_non_local: bool = False, use_kernel: bool = True):
         super().__init__()
         out_ch = out_channels if out_channels is not None else in_channels
-        self.bn1 = nn.BatchNorm2d(in_channels, eps=1e-5)
+        self.bn1 = BatchNorm2d(in_channels, eps=1e-5)
         self.conv1 = nn.Conv2d(in_channels, out_ch, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn2 = BatchNorm2d(out_ch, eps=1e-5)
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
         self.conv_identity = (nn.Conv2d(in_channels, out_ch, 1)
                               if in_channels != out_ch else None)
         self.attn = Attention(out_ch, use_kernel) if with_non_local else None
 
     def init_weights(self, generator):
-        _init_bn(self.bn1)
-        _init_bn(self.bn2)
         _init_conv(self.conv1, generator, RESIDUAL_GAIN)
         _init_conv(self.conv2, generator, RESIDUAL_GAIN)
         if self.conv_identity is not None:
@@ -98,16 +147,41 @@ class UpBlock(nn.Module):
         return h
 
 
+class DownBlock(nn.Module):
+    """Residual 3D down block (layers.py:140-168): main = ReLU-conv3-ReLU-conv3
+    (sqrt(2)-gain init) then the shape-aware average pool, identity = 1x1 conv
+    then the same pool. The middle width is out_channels when `wide`, else
+    in_channels. Input (B, C, T, H, W)."""
+
+    def __init__(self, in_channels: int, out_channels: int | None = None,
+                 wide: bool = True):
+        super().__init__()
+        out_ch = out_channels if out_channels is not None else in_channels
+        mid_ch = out_ch if wide else in_channels
+        self.conv1 = nn.Conv3d(in_channels, mid_ch, 3, padding=1)
+        self.conv2 = nn.Conv3d(mid_ch, out_ch, 3, padding=1)
+        self.conv_identity = nn.Conv3d(in_channels, out_ch, 1)
+
+    def init_weights(self, generator):
+        _init_conv(self.conv1, generator, RESIDUAL_GAIN)
+        _init_conv(self.conv2, generator, RESIDUAL_GAIN)
+        _init_conv(self.conv_identity, generator)
+
+    def forward(self, x):
+        h = self.conv2(torch.relu(self.conv1(torch.relu(x))))
+        identity = self.conv_identity(x)
+        return avg_pool_3d_shape_aware(identity) + avg_pool_3d_shape_aware(h)
+
+
 class RenderBlock(nn.Module):
     """BN-ReLU-conv3x3-Tanh to RGB."""
 
     def __init__(self, in_channels: int, out_channels: int = 3):
         super().__init__()
-        self.bn = nn.BatchNorm2d(in_channels, eps=1e-5)
+        self.bn = BatchNorm2d(in_channels, eps=1e-5)
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
 
     def init_weights(self, generator):
-        _init_bn(self.bn)
         _init_conv(self.conv, generator)
 
     def forward(self, x):

@@ -1,12 +1,16 @@
-"""TGANv2 multi-scale generator, eval mode (counterpart of
+"""TGANv2 multi-scale generator and discriminator (counterpart of
 txt2vid_tpu/models/tganv2.py).
 
-z [‖ cond] -> fc -> (fm_h, fm_w, fm_channels) latent plane -> ConvLSTM unroll of
-`num_frames` steps -> frames folded into the batch -> base UpBlock stack
-1024-512-256-128 -> `additional_blocks` UpBlocks, each paired with a RenderBlock.
-At eval only the final scale is rendered (plus any `output_blocks`). Training
-(the subsample pyramid between blocks) and the discriminator wait for the
-training slice.
+Generator: z [‖ cond] -> fc -> (fm_h, fm_w, fm_channels) latent plane ->
+ConvLSTM unroll of `num_frames` steps -> frames folded into the batch -> base
+UpBlock stack 1024-512-256-128 -> `additional_blocks` UpBlocks, each paired
+with a RenderBlock. In training a subsample (batch and frames halve, random
+temporal phase) runs before every block after the base and every scale is
+rendered; at eval only the final scale is rendered (plus any `output_blocks`).
+BatchNorm follows the module's train/eval mode, which must agree with `train`.
+
+Discriminator: one shared (or one per scale) Resnet3D applied to the
+positional list of scales.
 """
 
 from collections.abc import Sequence
@@ -16,7 +20,9 @@ from torch import nn
 
 from txt2vid_tpu_torch.models.conv_lstm import ConvLSTM
 from txt2vid_tpu_torch.models.layers import RenderBlock, UpBlock
+from txt2vid_tpu_torch.models.resnet3d import Resnet3D
 from txt2vid_tpu_torch.ops.initializers import xavier_normal_
+from txt2vid_tpu_torch.ops.subsample import subsample_video
 
 
 class BaseFrameGen(nn.Module):
@@ -68,15 +74,25 @@ class MultiScaleGen(nn.Module):
         xavier_normal_(self.fc.weight, generator=generator)
         nn.init.zeros_(self.fc.bias)
 
-    def forward(self, z, cond=None, train: bool = False, output_blocks=None):
-        if train:
-            raise NotImplementedError(
-                "train=True (the subsample pyramid) comes with the training slice")
+    def forward(self, z, cond=None, train: bool = False, output_blocks=None,
+                phases=None, generator: torch.Generator | None = None):
+        """-> list of rendered videos (B_i, T_i, H_i, W_i, C). With train=True
+        (the module in training mode) the subsample before block i >= 1 takes
+        the temporal phase phases[i - 1], or draws it from `generator`."""
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a module in "
+                             f"{'training' if self.training else 'eval'} mode")
+        if train and phases is None:
+            phases = [int(torch.randint(0, 2, (), generator=generator))
+                      for _ in range(self.num_blocks - 1)]
+        if train and len(phases) != self.num_blocks - 1:
+            raise ValueError(f"{self.num_blocks - 1} phases needed, got {len(phases)}")
         x = z if cond is None else torch.cat([z, cond], dim=1)
         b = x.shape[0]
         # the fc's outputs are (fm_h, fm_w, C) in the JAX layout; NCHW after
         x = self.fc(x).reshape(b, self.fm_h, self.fm_w, self.fm_channels)
         x = self.clstm(x.permute(0, 3, 1, 2))            # (B, T, C, h, w)
+        num_frames = self.num_frames
         x = x.reshape((-1,) + x.shape[2:])               # fold time into batch
 
         blocks = [self.base] + [getattr(self, f"up{i}") for i in range(self.num_blocks - 1)]
@@ -84,8 +100,54 @@ class MultiScaleGen(nn.Module):
                                         for i in range(self.num_blocks - 1)]
         rendered = []
         for i, (block, render) in enumerate(zip(blocks, renders)):
+            if i != 0 and train:
+                v = x.reshape((-1, num_frames) + x.shape[1:])
+                v = subsample_video(v, phases[i - 1])
+                num_frames //= 2
+                x = v.reshape((-1,) + v.shape[2:])
             x = block(x)
-            if i == len(blocks) - 1 or (output_blocks is not None and i in output_blocks):
+            if i == len(blocks) - 1 or train or (output_blocks is not None
+                                                 and i in output_blocks):
                 r = render(x).permute(0, 2, 3, 1)        # (B*T, H, W, C)
-                rendered.append(r.reshape((b, self.num_frames) + r.shape[1:]))
+                rendered.append(r.reshape((-1, num_frames) + r.shape[1:]))
         return rendered
+
+
+class MultiScaleDiscrim(nn.Module):
+    """Positional list of scales (B_i, T_i, H_i, W_i, C) [, conds] -> list of
+    (uncond, cond, features) triples, one per scale (tganv2.py:157-212).
+    `single_discrim` shares one Resnet3D (`discrim`, with the last entry of
+    discrim_down_blocks) across scales; otherwise scale i has `discrim{i}`.
+    `scale_indices` maps positional inputs to sub-discriminators."""
+
+    is_multiscale = True
+
+    def __init__(self, discrim_down_blocks: Sequence[int] = (4, 4, 4, 4),
+                 num_channels: int = 3, cond_dim: int = 0, single_discrim: bool = True,
+                 wide: bool = False, with_attn: bool = True, cond_head: str = "concat",
+                 use_kernel: bool = True):
+        super().__init__()
+        self.single_discrim = single_discrim
+
+        def make(db):
+            return Resnet3D(num_channels=num_channels, cond_dim=cond_dim,
+                            num_down_blocks=db, wide=wide, with_attn=with_attn,
+                            cond_head=cond_head, use_kernel=use_kernel)
+
+        if single_discrim:
+            self.discrim = make(discrim_down_blocks[-1])
+        else:
+            for i, db in enumerate(discrim_down_blocks):
+                self.add_module(f"discrim{i}", make(db))
+
+    def sub(self, i: int) -> Resnet3D:
+        return self.discrim if self.single_discrim else getattr(self, f"discrim{i}")
+
+    def forward(self, x, cond=None, computed_features=None, scale_indices=None):
+        if scale_indices is None:
+            scale_indices = range(len(x))
+        return [self.sub(si)(scale,
+                             cond[pos] if cond is not None else None,
+                             computed_features[pos] if computed_features is not None
+                             else None)
+                for pos, (si, scale) in enumerate(zip(scale_indices, x))]

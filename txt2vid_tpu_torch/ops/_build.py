@@ -20,7 +20,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> its source under csrc/
-SOURCES = {"attention_fwd": "attention_fwd.cu"}
+SOURCES = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # name -> nvcc's output (registers, spills)

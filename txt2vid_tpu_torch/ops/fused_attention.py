@@ -1,21 +1,29 @@
-"""Fused non-local attention forward: a hand-written CUDA kernel for Hopper.
+"""Fused non-local attention, forward and backward: hand-written CUDA kernels
+for Hopper.
 
-Replaces the Pallas TPU kernel `fused_attention` / `_attn_kernel`
-(txt2vid_tpu/ops/pallas_attention.py:43-131): o = softmax(theta @ phi^T) @ g with
-unscaled logits, plus the row log-sum-exp, without the N x M map in device
-memory. The kernel is `csrc/attention_fwd.cu`, built with nvcc for sm_90a and
-bound with ctypes (ops/_build.py).
+Replaces the three Pallas TPU kernels of txt2vid_tpu/ops/pallas_attention.py:
 
-What bounds it on an H100: at the generator's serving shape (B, N, M, d, dv) =
-(128, 1024, 256, 4, 16) it moves about 13.6 MB but does 2*B*N*M*(d+dv) = 1.34
-GFLOP of scalar f32 work and B*N*M exponentials, so the CUDA cores' f32 rate is
-the floor (d = 4 is below the tensor cores' K of 16). The design keeps that work
-in registers: one thread per query row, phi and g tiles broadcast from shared
-memory, and one accumulator rescale per chunk of keys (see the source's note).
+- K1 `fused_attention` / `_attn_kernel` (:43-131): o = softmax(theta @ phi^T) @ g
+  with unscaled logits, plus the row log-sum-exp. Kernel `csrc/attention_fwd.cu`.
+- K2 `_attn_bwd_dq_kernel` (:141-168, launched :225-245): dtheta = ds @ phi.
+- K3 `_attn_bwd_dkv_kernel` (:171-204, launched :247-276): dphi = ds^T @ theta,
+  dg = p^T @ do. K2 and K3 live in `csrc/attention_bwd.cu`.
 
-`fused_attention` launches the kernel for CUDA tensors and raises on anything
-the kernel does not take; for CPU tensors it computes the plain version,
-`fused_attention_reference`. `fused_attention.launches` counts kernel launches.
+with p = exp(s - lse), ds = p * (do @ g^T - delta) and delta = rowsum(do * o).
+None of them writes the N x M map to device memory. The kernels are built with
+nvcc for sm_90a and bound with ctypes (ops/_build.py).
+
+What bounds them on an H100: at the generator's training shape (B, N, M, d, dv)
+= (40, 1024, 256, 4, 16) K1 does 2*B*N*M*(d + dv) = 0.42 GFLOP, K2
+2*B*N*M*(2d + dv) = 0.50 GFLOP and K3 2*B*N*M*(2d + 2dv) = 0.84 GFLOP of scalar
+f32 work against about 5 MB of traffic each, so the CUDA cores' f32 rate is
+the floor (d = 4 is below the tensor cores' K of 16). Each kernel keeps one
+row's operands and accumulators in registers and broadcasts tiles of the other
+side from shared memory (see the sources' notes).
+
+Each wrapper launches its kernel for CUDA tensors and raises on anything the
+kernel does not take; for CPU tensors it computes its plain version (`*_reference`)
+at any width. Each wrapper's `.launches` counts its kernel's launches.
 """
 
 import ctypes
@@ -25,14 +33,19 @@ import torch
 
 from txt2vid_tpu_torch.ops import _build
 
-# (d, dv) pairs the kernel is instantiated for: the generator's 2-D Attention at
-# 32 channels and the discriminator's Attention3d at 128 channels
+# (d, dv) pairs the kernels are instantiated for: the generator's 2-D Attention
+# at 32 channels and the discriminator's Attention3d at 128 channels
 SUPPORTED_DV = {4: 16, 16: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K3 splits N across blocks when B * ceil(M / 128) blocks would not fill the
+# card; each split handles a multiple of the kernel's 64-row tile
+_DKV_KEYS_PER_BLOCK = 128
+_DKV_TILE_N = 64
+_DKV_TARGET_BLOCKS = 4 * 132
 
 
 def fused_attention_reference(theta, phi, g, return_lse: bool = False):
-    """Plain version: einsum and softmax in f32, o cast to g's dtype."""
+    """Plain version of K1: einsum and softmax in f32, o cast to g's dtype."""
     logits = torch.einsum("bnd,bmd->bnm", theta.float(), phi.float())
     o = torch.einsum("bnm,bmv->bnv", torch.softmax(logits, dim=-1), g.float())
     o = o.to(g.dtype)
@@ -41,7 +54,50 @@ def fused_attention_reference(theta, phi, g, return_lse: bool = False):
     return o
 
 
+def _probs(theta, phi, lse):
+    """p = exp(theta phi^T - lse) in f32, the backward's re-formed softmax."""
+    s = torch.einsum("bnd,bmd->bnm", theta.float(), phi.float())
+    return torch.exp(s - lse[..., None])
+
+
+def _dlogits(p, g, do, delta):
+    """ds = p * (do g^T - delta) in f32."""
+    dp = torch.einsum("bnv,bmv->bnm", do.float(), g.float())
+    return p * (dp - delta[..., None])
+
+
+def attention_bwd_dq_reference(theta, phi, g, do, lse, delta):
+    """Plain version of K2: dtheta = ds @ phi, cast to theta's dtype."""
+    ds = _dlogits(_probs(theta, phi, lse), g, do, delta)
+    return torch.einsum("bnm,bmd->bnd", ds, phi.float()).to(theta.dtype)
+
+
+def attention_bwd_dkv_reference(theta, phi, g, do, lse, delta):
+    """Plain version of K3: dphi = ds^T @ theta and dg = p^T @ do, each cast to
+    its input's dtype."""
+    p = _probs(theta, phi, lse)
+    ds = _dlogits(p, g, do, delta)
+    dphi = torch.einsum("bnm,bnd->bmd", ds, theta.float()).to(phi.dtype)
+    dg = torch.einsum("bnm,bnv->bmv", p, do.float()).to(g.dtype)
+    return dphi, dg
+
+
+def attention_delta(o, do):
+    """delta = rowsum(do * o) in f32, (B, N): computed outside the kernels, as
+    the JAX package does (pallas_attention.py:220-223)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def fused_attention_bwd_reference(theta, phi, g, o, lse, do):
+    """Plain version of the whole backward: (dtheta, dphi, dg)."""
+    delta = attention_delta(o, do)
+    dphi, dg = attention_bwd_dkv_reference(theta, phi, g, do, lse, delta)
+    return attention_bwd_dq_reference(theta, phi, g, do, lse, delta), dphi, dg
+
+
 def _check(theta, phi, g):
+    """What any device takes: one device, one float32/bfloat16 dtype,
+    (B, N, d), (B, M, d), (B, M, dv), contiguous. Returns (b, n, m, d, dv)."""
     if not (theta.device == phi.device == g.device):
         raise ValueError(f"inputs on different devices: {theta.device}, "
                          f"{phi.device}, {g.device}")
@@ -56,51 +112,147 @@ def _check(theta, phi, g):
     if bp != b or bg != b or dp != d or mg != m:
         raise ValueError(f"shape mismatch: theta {tuple(theta.shape)}, phi "
                          f"{tuple(phi.shape)}, g {tuple(g.shape)}")
+    if not (theta.is_contiguous() and phi.is_contiguous() and g.is_contiguous()):
+        raise ValueError("fused_attention takes contiguous tensors")
+    if theta.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_attention runs on CUDA or CPU, not {theta.device}")
+    return b, n, m, d, dv
+
+
+def _check_kernel(b, n, m, d, dv):
+    """What the CUDA kernels take beyond `_check`."""
     if SUPPORTED_DV.get(d) != dv:
         raise ValueError(f"no kernel for (d, dv) = ({d}, {dv}); built for "
                          f"{sorted(SUPPORTED_DV.items())}")
     if n < 1 or m < 1 or not 1 <= b <= 65535:
         raise ValueError(f"unsupported sizes B={b} N={n} M={m}")
     if n * max(d, dv) >= 2**31 or m * dv >= 2**31:
-        raise ValueError("N or M too large for the kernel's int32 row indices")
-    if not (theta.is_contiguous() and phi.is_contiguous() and g.is_contiguous()):
-        raise ValueError("fused_attention takes contiguous tensors")
-    return b, n, m, d, dv
+        raise ValueError("N or M too large for the kernels' int32 row indices")
+
+
+def _check_rows(name, t, shape, dtype):
+    """A per-row operand of the backward: do (B, N, dv) or lse / delta (B, N)."""
+    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {shape} on CUDA, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 @functools.cache
-def _kernel():
-    """The C entry point t2v_attention_fwd(theta, phi, g, o, lse, b, n, m, d, dv,
-    dtype, device, stream), built and typed on first use."""
-    fn = _build.load("attention_fwd").t2v_attention_fwd
-    # pointers and the stream as c_void_p: untyped, ctypes would pass 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _kernel(name):
+    """A C entry point of the kernel libraries, built and typed on first use:
+      t2v_attention_fwd(theta, phi, g, o, lse, b, n, m, d, dv, dtype, device, stream)
+      t2v_attention_bwd_dq(theta, phi, g, do, lse, delta, dtheta,
+                           b, n, m, d, dv, dtype, device, stream)
+      t2v_attention_bwd_dkv(theta, phi, g, do, lse, delta, dphi, dg, scratch,
+                            splits, rows_per_split, b, n, m, d, dv, dtype, device, stream)
+    Pointers and the stream are c_void_p: untyped, ctypes would pass 32 bits."""
+    lib, pointers, ints = {"t2v_attention_fwd": ("attention_fwd", 5, 7),
+                           "t2v_attention_bwd_dq": ("attention_bwd", 7, 7),
+                           "t2v_attention_bwd_dkv": ("attention_bwd", 9, 9)}[name]
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
 def fused_attention(theta, phi, g, return_lse: bool = False):
-    """(B, N, d), (B, M, d), (B, M, dv) -> o (B, N, dv) in g's dtype
+    """K1. (B, N, d), (B, M, d), (B, M, dv) -> o (B, N, dv) in g's dtype
     [, lse (B, N) float32]. CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+    the plain version. The output carries no autograd graph on CUDA: gradients
+    go through ops/attention.py's FusedAttention."""
     b, n, m, d, dv = _check(theta, phi, g)
     if theta.device.type == "cpu":
         return fused_attention_reference(theta, phi, g, return_lse)
-    if theta.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on CUDA or CPU, not {theta.device}")
-
-    kernel = _kernel()
+    _check_kernel(b, n, m, d, dv)
     o = torch.empty((b, n, dv), dtype=g.dtype, device=g.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=g.device) \
         if return_lse else None
-    stream = torch.cuda.current_stream(theta.device).cuda_stream
-    err = kernel(theta.data_ptr(), phi.data_ptr(), g.data_ptr(), o.data_ptr(),
-                 lse.data_ptr() if lse is not None else None,
-                 b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed: cudaError {err}")
+    err = _kernel("t2v_attention_fwd")(
+        theta.data_ptr(), phi.data_ptr(), g.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
+    _raise_on(err, "attention_fwd")
     fused_attention.launches += 1
     return (o, lse) if return_lse else o
 
 
+def _check_bwd(theta, phi, g, do, lse, delta):
+    b, n, m, d, dv = _check(theta, phi, g)
+    if theta.device.type == "cuda":
+        _check_kernel(b, n, m, d, dv)
+        _check_rows("do", do, (b, n, dv), g.dtype)
+        _check_rows("lse", lse, (b, n), torch.float32)
+        _check_rows("delta", delta, (b, n), torch.float32)
+    return b, n, m, d, dv
+
+
+def attention_bwd_dq(theta, phi, g, do, lse, delta):
+    """K2. dtheta (B, N, d) in theta's dtype from the forward's inputs, the
+    output gradient do (B, N, dv), lse and delta (B, N) float32."""
+    b, n, m, d, dv = _check_bwd(theta, phi, g, do, lse, delta)
+    if theta.device.type == "cpu":
+        return attention_bwd_dq_reference(theta, phi, g, do, lse, delta)
+    dtheta = torch.empty_like(theta)
+    err = _kernel("t2v_attention_bwd_dq")(
+        theta.data_ptr(), phi.data_ptr(), g.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dtheta.data_ptr(),
+        b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
+    _raise_on(err, "attention_bwd_dq")
+    attention_bwd_dq.launches += 1
+    return dtheta
+
+
+def dkv_splits(b, n, m):
+    """(splits, rows_per_split): how K3 cuts N across blocks so that about
+    _DKV_TARGET_BLOCKS blocks are in flight; 1 split writes the outputs
+    directly, more go through an f32 scratch and a fixed-order reduction."""
+    blocks = b * -(-m // _DKV_KEYS_PER_BLOCK)
+    tiles = -(-n // _DKV_TILE_N)
+    want = max(1, min(tiles, 16, -(-_DKV_TARGET_BLOCKS // blocks)))
+    rows = -(-tiles // want) * _DKV_TILE_N
+    return -(-n // rows), rows
+
+
+def attention_bwd_dkv(theta, phi, g, do, lse, delta):
+    """K3. (dphi (B, M, d), dg (B, M, dv)) in phi's and g's dtype; arguments as
+    for attention_bwd_dq."""
+    b, n, m, d, dv = _check_bwd(theta, phi, g, do, lse, delta)
+    if theta.device.type == "cpu":
+        return attention_bwd_dkv_reference(theta, phi, g, do, lse, delta)
+    dphi = torch.empty_like(phi)
+    dg = torch.empty_like(g)
+    splits, rows = dkv_splits(b, n, m)
+    scratch = (torch.empty((splits, b * m * (d + dv)), dtype=torch.float32,
+                           device=g.device) if splits > 1 else None)
+    err = _kernel("t2v_attention_bwd_dkv")(
+        theta.data_ptr(), phi.data_ptr(), g.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dphi.data_ptr(), dg.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, splits, rows,
+        b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
+    _raise_on(err, "attention_bwd_dkv")
+    attention_bwd_dkv.launches += 1
+    return dphi, dg
+
+
+def fused_attention_bwd(theta, phi, g, o, lse, do):
+    """(forward inputs, o, lse, do) -> (dtheta, dphi, dg): delta with a torch
+    op, then K2 and K3 (their plain versions for CPU tensors)."""
+    delta = attention_delta(o, do)
+    dtheta = attention_bwd_dq(theta, phi, g, do, lse, delta)
+    dphi, dg = attention_bwd_dkv(theta, phi, g, do, lse, delta)
+    return dtheta, dphi, dg
+
+
 fused_attention.launches = 0
+attention_bwd_dq.launches = 0
+attention_bwd_dkv.launches = 0
