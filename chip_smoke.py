@@ -6,14 +6,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN, so
    the port's float32 runs in float32.
-2. build: every CUDA kernel of the port, from txt2vid_tpu_torch/csrc, with nvcc.
+2. build: every CUDA kernel of the port, from txt2vid_tpu_torch/csrc, with nvcc
+   (registers, shared memory and spills as ptxas reports them), and the count
+   of tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in each
+   kernel's SASS, read with cuobjdump. Fails if K1 or K3 has none.
 3. kernels: each kernel (K1 the attention forward, K2 and K3 its backward)
    against its plain PyTorch version on the card, at the main paths' shapes,
    the parity shapes of tpu_checks.py and a ragged shape, in float32 and
-   bfloat16; then its time beside the plain version's and one PyTorch library
-   call's that computes the same function. K1's record keeps the serving shape
-   and the serve phase's launches; its training shape is nested under
-   "train_shape". K2 and K3 are timed at the training shape.
+   bfloat16; K3 run twice at the training shape must agree bit for bit. Then
+   each kernel's time beside the plain version's and one PyTorch library
+   call's that computes the same function, its bounds and the resident warps
+   per SM, at the serving and training shapes and at the discriminator's four
+   training shapes (D_TRAIN_SHAPES, nested under "d_shapes"). K1's record
+   keeps the serving shape and the serve phase's launches; its training shape
+   is nested under "train_shape". K2 and K3 records hold the training shape.
 4. serve: the caption->video service (txt2vid_tpu_torch.serve) at the width of
    the flagship conditional model, weights random from --seed and every
    attention gamma set to 1, answering 20 captions of mixed length in chunks of
@@ -28,17 +34,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    K2 and K3 13 times, with finite losses; every G and D parameter with a
    nonzero gradient must have moved, the attention blocks' among them.
 
+With --baseline DIR (another checkout's root, e.g. the parent commit's
+`git archive` unpacked under build/), a phase compare after the kernels phase
+times that checkout's K1 and K3, built from its own sources, beside this
+one's at the same shapes, in the order baseline, this, this, baseline.
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
 import argparse
+import importlib.util
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -51,12 +66,14 @@ from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
     attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
     attention_bwd_dq_reference, attention_delta, fused_attention,
-    fused_attention_reference)
+    fused_attention_reference, occupancy)
 from txt2vid_tpu_torch.serve import GeneratorService
 
-# NVIDIA H100 SXM data sheet: HBM bandwidth, and float32 outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM bandwidth, float32 outside the tensor cores,
+# and TF32 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 
 # (B, N, M, d, dv): the generator's up1 attention serving batch 8 (128 frames
 # of 32x32) and training batch 40 (after two subsamples, 40 frames of 32x32),
@@ -85,6 +102,14 @@ TRAIN_LAUNCHES = {"attention_fwd": 17, "attention_bwd_dq": 13, "attention_bwd_dk
 TRAIN_STEPS = 3
 KERNELS = {"attention_fwd": fused_attention, "attention_bwd_dq": attention_bwd_dq,
            "attention_bwd_dkv": attention_bwd_dkv}
+BWD_OUTPUTS = {"attention_bwd_dq": ("dtheta",), "attention_bwd_dkv": ("dphi", "dg")}
+# kernels that must show tensor-core instructions in their SASS
+TENSOR_CORE_KERNELS = ("attention_fwd", "attention_bwd_dkv")
+# multiply-adds per (query, key) pair: K1 theta.phi and p.g; K2 theta.phi,
+# do.g and ds.phi; K3 theta.phi, do.g, p.do and ds.theta
+PAIR_MACS = {"attention_fwd": lambda d, dv: d + dv,
+             "attention_bwd_dq": lambda d, dv: 2 * d + dv,
+             "attention_bwd_dkv": lambda d, dv: 2 * d + 2 * dv}
 
 
 def fail(msg):
@@ -103,7 +128,8 @@ def max_err(ref, got):
 
 
 def cuda_ms(fn, reps=25, warmup=3):
-    """Median ms of one call, each timed alone with CUDA events."""
+    """Median ms of one call, each timed alone with CUDA events. At the
+    discriminator's shapes this is mostly the host's launch time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -119,6 +145,29 @@ def cuda_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, launches=20, reps=10):
+    """Median device ms of one call, from a CUDA graph of `launches` calls
+    replayed `reps` times: no host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def attention_inputs(shape, dtype, seed):
     b, n, m, d, dv = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -126,31 +175,31 @@ def attention_inputs(shape, dtype, seed):
             for size in ((b, n, d), (b, m, d), (b, m, dv))]
 
 
-def attention_bound_ms(shape, dtype):
-    """The least time for o = softmax(theta phi^T) g: inputs read once and o
-    written once over HBM bandwidth, or 2*B*N*M*(d + dv) float32 operations
-    over the f32 peak, whichever is larger (exponentials not counted)."""
-    b, n, m, d, dv = shape
-    nbytes = torch.finfo(dtype).bits // 8 * (b * n * d + b * m * d + b * m * dv + b * n * dv)
-    flops = 2 * b * n * m * (d + dv)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def bwd_bound_ms(shape, dtype, kernel):
-    """The least time for K2 (dtheta) or K3 (dphi, dg): theta, phi, g, do in
-    the input dtype and lse, delta in f32 read once, the outputs written once,
-    over HBM bandwidth; or 2*B*N*M*(2d + dv) (K2) / 2*B*N*M*(2d + 2dv) (K3)
-    float32 operations over the f32 peak; whichever is larger."""
+def bounds(shape, dtype, kernel):
+    """The least time for `kernel` at `shape`: theta, phi, g (and for the
+    backward do in the input dtype, lse and delta in f32) read once and the
+    outputs written once over HBM bandwidth, or its 2*B*N*M*PAIR_MACS
+    operations over a peak rate, whichever is larger (exponentials not
+    counted). Returns {bound_ms, bound_by} against the f32 rate outside the
+    tensor cores, as earlier records hold, and {tc_bound_ms, tc_bound_by}
+    against three TF32 passes on the tensor cores, the float32 design of K1
+    and K3."""
     b, n, m, d, dv = shape
     isz = torch.finfo(dtype).bits // 8
-    read = isz * (b * n * d + b * m * d + b * m * dv + b * n * dv) + 4 * 2 * b * n
-    if kernel == "attention_bwd_dq":
-        nbytes, flops = read + isz * b * n * d, 2 * b * n * m * (2 * d + dv)
+    nbytes = isz * (b * n * d + b * m * d + b * m * dv)
+    if kernel == "attention_fwd":
+        nbytes += isz * b * n * dv
     else:
-        nbytes, flops = read + isz * (b * m * d + b * m * dv), 2 * b * n * m * (2 * d + 2 * dv)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        nbytes += isz * b * n * dv + 4 * 2 * b * n
+        nbytes += isz * (b * n * d if kernel == "attention_bwd_dq" else b * m * (d + dv))
+    flops = 2 * b * n * m * PAIR_MACS[kernel](d, dv)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    out = {}
+    for key, t_ops in (("", flops / PEAK_F32_FLOP_PER_S),
+                       ("tc_", 3 * flops / PEAK_TF32_FLOP_PER_S)):
+        out[f"{key}bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        out[f"{key}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
 
 
 def zero_counts():
@@ -176,18 +225,38 @@ def phase_device():
 
 
 def phase_build():
+    """Builds the kernels; returns each kernel's tensor-core instruction
+    counts in its SASS, summed over its instantiations."""
     seconds = _build.build_all()
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase build: {name}: {line.strip()}")
     print(f"phase build: {sorted(_build.SOURCES)} built in {seconds:.2f} s")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    tc = {name: {"HMMA": 0, "HGMMA": 0} for name in KERNELS}
+    for lib in _build.SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                kernel = next((k for k in KERNELS if f"{k}_kernel" in line), None)
+            elif kernel is not None:
+                for op in tc[kernel]:
+                    tc[kernel][op] += len(re.findall(rf"\b{op}\b", line))
+    for name, counts in tc.items():
+        print(f"phase build: {name} SASS tensor-core instructions {counts}")
+    check(all(sum(tc[k].values()) > 0 for k in TENSOR_CORE_KERNELS),
+          f"no tensor-core instruction in the SASS of {TENSOR_CORE_KERNELS}: {tc}")
+    return tc
 
 
 def phase_attention(seed):
     """K1 against its plain version at every shape and dtype; times at the
-    serving and the training shape. Returns the kernel's record for the JSON
-    line (the serving shape's numbers, the training shape's nested)."""
+    serving, the training and the discriminator's shapes. Returns the
+    kernel's record for the JSON line (the serving shape's numbers, the
+    others nested)."""
     serve_err = train_err = None
     for shape in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -219,24 +288,30 @@ def phase_attention(seed):
     return {"name": "attention_fwd", "route": "cuda",
             "source": "txt2vid_tpu_torch/csrc/attention_fwd.cu",
             "replaces": "txt2vid_tpu/ops/pallas_attention.py:43",
-            "launches": None, **record, "train_shape": train}
+            "launches": None, **record, "train_shape": train,
+            "d_shapes": [time_forward(shape, seed) for shape in D_TRAIN_SHAPES]}
 
 
 def time_forward(shape, seed):
     """K1's float32 time at `shape` beside its plain version's, SDPA's and its
-    bound."""
+    bounds, and the warps per SM it keeps resident."""
     theta, phi, g = attention_inputs(shape, torch.float32, seed)
     ms = cuda_ms(lambda: fused_attention(theta, phi, g))
+    device_ms = graph_ms(lambda: fused_attention(theta, phi, g))
     plain_ms = cuda_ms(lambda: fused_attention_reference(theta, phi, g))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(theta, phi, g, scale=1.0)
     sdpa_err, _ = max_err(fused_attention_reference(theta, phi, g), sdpa())
     library_ms = cuda_ms(sdpa)
-    bound_ms, bound_by = attention_bound_ms(shape, torch.float32)
-    print(f"phase kernels: attention_fwd at {shape} float32: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
-          f"(its max|diff| {sdpa_err:.3g}), bound {bound_ms:.4f} ms by {bound_by}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": list(shape), "dtype": "float32"}
+    bound = bounds(shape, torch.float32, "attention_fwd")
+    occ = occupancy("attention_fwd", shape)
+    print(f"phase kernels: attention_fwd at {shape} float32: kernel {ms:.4f} ms "
+          f"(in a CUDA graph {device_ms:.4f}), plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (its max|diff| {sdpa_err:.3g}), "
+          f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, tensor-core bound "
+          f"{bound['tc_bound_ms']:.4f} ms by {bound['tc_bound_by']}, {occ}")
+    return {"ms": ms, "graph_ms": device_ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms, "resident_warps_per_sm": occ["resident_warps_per_sm"],
+            "shape": list(shape), "dtype": "float32"}
 
 
 def bwd_inputs(shape, dtype, seed):
@@ -250,8 +325,9 @@ def bwd_inputs(shape, dtype, seed):
 
 
 def phase_attention_bwd(seed):
-    """K2 and K3 against their plain versions at every shape and dtype; times
-    at the generator's training shape. Returns their records."""
+    """K2 and K3 against their plain versions at every shape and dtype, K3's
+    repeatability; times at the generator's training shape (the records) and
+    the discriminator's shapes (nested). Returns their records."""
     train_err = {}
     for shape in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -276,6 +352,24 @@ def phase_attention_bwd(seed):
                 train_err = {w: e for w, (e, _) in errs.items()}
 
     args = bwd_inputs(TRAIN_SHAPE, torch.float32, seed)
+    first, again = attention_bwd_dkv(*args), attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(first, again)),
+          f"attention_bwd_dkv is not repeatable bit for bit at {TRAIN_SHAPE}")
+    print(f"phase kernels: attention_bwd_dkv at {TRAIN_SHAPE} float32 repeats bit for bit")
+
+    records = time_backward(TRAIN_SHAPE, seed)
+    per_shape = [time_backward(shape, seed) for shape in D_TRAIN_SHAPES]
+    for i, r in enumerate(records):
+        r["max_abs_err"] = max(train_err[w] for w in BWD_OUTPUTS[r["name"]])
+        r["d_shapes"] = [rs[i] for rs in per_shape]
+    return records
+
+
+def time_backward(shape, seed):
+    """K2's and K3's float32 times at `shape` beside their plain versions',
+    the SDPA backward's (dtheta, dphi and dg together) and their bounds."""
+    args = bwd_inputs(shape, torch.float32, seed)
     theta, phi, g, do = args[:4]
     q, k, v = (t.detach().requires_grad_() for t in (theta, phi, g))
     o_lib = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
@@ -284,27 +378,72 @@ def phase_attention_bwd(seed):
         (attention_bwd_dq_reference(*args), *attention_bwd_dkv_reference(*args)), library()))
     library_ms = cuda_ms(library)
     records = []
-    for name, kernel, plain, outs in (
-            ("attention_bwd_dq", attention_bwd_dq, attention_bwd_dq_reference, ("dtheta",)),
-            ("attention_bwd_dkv", attention_bwd_dkv, attention_bwd_dkv_reference,
-             ("dphi", "dg"))):
+    for name, kernel, plain in (
+            ("attention_bwd_dq", attention_bwd_dq, attention_bwd_dq_reference),
+            ("attention_bwd_dkv", attention_bwd_dkv, attention_bwd_dkv_reference)):
         ms = cuda_ms(lambda: kernel(*args))
+        device_ms = graph_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
-        bound_ms, bound_by = bwd_bound_ms(TRAIN_SHAPE, torch.float32, name)
-        print(f"phase kernels: {name} at {TRAIN_SHAPE} float32: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        bound = bounds(shape, torch.float32, name)
+        warps = (occupancy(name, shape)["resident_warps_per_sm"]
+                 if name == "attention_bwd_dkv" else None)
+        print(f"phase kernels: {name} at {shape} float32: kernel {ms:.4f} ms (in a CUDA "
+              f"graph {device_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
+              f"ms by {bound['bound_by']}, tensor-core bound {bound['tc_bound_ms']:.4f} ms"
+              + (f", {warps:.2f} resident warps per SM" if warps is not None else ""))
         records.append({
             "name": name, "route": "cuda", "source": "txt2vid_tpu_torch/csrc/attention_bwd.cu",
             "replaces": ("txt2vid_tpu/ops/pallas_attention.py:141" if name == "attention_bwd_dq"
                          else "txt2vid_tpu/ops/pallas_attention.py:171"),
-            "launches": None, "max_abs_err": max(train_err[w] for w in outs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "library_computes": "dtheta, dphi and dg together",
-            "shape": list(TRAIN_SHAPE), "dtype": "float32"})
+            "launches": None, "ms": ms, "graph_ms": device_ms,
+            "plain_ms": plain_ms, **bound, "library_ms": library_ms,
+            "library_computes": "dtheta, dphi and dg together",
+            "resident_warps_per_sm": warps, "shape": list(shape), "dtype": "float32"})
     print(f"phase kernels: scaled_dot_product_attention backward (dtheta, dphi, dg) at "
-          f"{TRAIN_SHAPE} float32: {library_ms:.4f} ms (its max|diff| {lib_err:.3g}); "
+          f"{shape} float32: {library_ms:.4f} ms (its max|diff| {lib_err:.3g}); "
           f"K2 + K3 {records[0]['ms'] + records[1]['ms']:.4f} ms")
     return records
+
+
+def load_baseline(root):
+    """ops/fused_attention.py of the checkout at `root`, with its own _build:
+    its kernels come from its own csrc/ and build into its own build/."""
+    ops = Path(root).resolve() / "txt2vid_tpu_torch" / "ops"
+    mods = {}
+    for name in ("_build", "fused_attention"):
+        spec = importlib.util.spec_from_file_location(f"baseline_{name}", ops / f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    mods["fused_attention"]._build = mods["_build"]
+    return mods["fused_attention"]
+
+
+def phase_compare(root, seed):
+    """K1 and K3 of the checkout at `root` and of this one, float32, timed in
+    turns on the same inputs, each checked against this one's plain version."""
+    base = load_baseline(root)
+    print(f"phase compare: baseline {root} built in {base._build.build_all():.2f} s")
+    this = sys.modules[fused_attention.__module__]
+    for name, shapes in (("fused_attention", [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES]),
+                         ("attention_bwd_dkv", [TRAIN_SHAPE, *D_TRAIN_SHAPES])):
+        for shape in shapes:
+            args = (attention_inputs(shape, torch.float32, seed) if name == "fused_attention"
+                    else bwd_inputs(shape, torch.float32, seed))
+            plain = (fused_attention_reference(*args) if name == "fused_attention"
+                     else attention_bwd_dkv_reference(*args))
+            times = {"baseline": [], "this": []}
+            for tag, mod in (("baseline", base), ("this", this), ("this", this),
+                             ("baseline", base)):
+                fn = lambda: getattr(mod, name)(*args)
+                got = fn()
+                err = max(max_err(r, x)[0] for r, x in
+                          zip(plain if isinstance(plain, tuple) else (plain,),
+                              got if isinstance(got, tuple) else (got,)))
+                times[tag].append((cuda_ms(fn), graph_ms(fn), err))
+            print(f"phase compare: {name} at {shape} float32, (ms, ms in a CUDA graph, "
+                  f"max|diff| from plain) in the order baseline, this, this, baseline: "
+                  f"{times['baseline'][0]} {times['this'][0]} {times['this'][1]} "
+                  f"{times['baseline'][1]}")
 
 
 def mixed_captions(n, seed):
@@ -453,13 +592,19 @@ def phase_train(seed):
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--baseline", metavar="DIR",
+                   help="another checkout whose K1 and K3 to time beside this one's")
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU")
 
     name, smi = phase_device()
-    phase_build()
+    tc = phase_build()
     records = [phase_attention(args.seed), *phase_attention_bwd(args.seed)]
+    if args.baseline:
+        phase_compare(args.baseline, args.seed)
+    for r in records:
+        r["tc_instructions"] = tc[r["name"]]
     serve_launches, _ = phase_serve(args.seed)
     train = phase_train(args.seed)
     records[0]["launches"] = serve_launches

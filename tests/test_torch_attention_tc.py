@@ -1,0 +1,161 @@
+"""The numerics and geometry of the tensor-core attention kernels (K1 and K3),
+checked on the CPU.
+
+- Three TF32 passes: a numpy emulation of the kernels' split (hi rounded to
+  TF32 to nearest, lo = x - hi truncated to TF32) and products shows that three
+  passes stay within the card tests' 1e-4 * max(1, max|ref|) of the plain
+  float32 versions at their logit scale (2 * randn, d = 16, dv = 64), and that
+  one pass does not.
+- bfloat16: the plain versions of K1 and K3, which round p and ds to bf16 before
+  their products as the TPU kernels do, against the JAX package's Pallas
+  kernels in interpret mode with bf16 inputs and small blocks. o and the
+  gradients 1e-2 * scale (each side rounds to bf16 in its own place: p
+  relative to the running max there, the final one here); lse 1e-4 * scale
+  (f32 logits of bf16 inputs summed in another order).
+- K3's split of N across blocks covers every query row exactly once, and the
+  kernels refuse data that does not start on a 16-byte boundary.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from test_torch_ops import assert_close
+from txt2vid_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
+from txt2vid_tpu.ops.pallas_attention import fused_attention_bwd as jax_fused_attention_bwd
+from txt2vid_tpu_torch.ops import fused_attention as port_fused
+
+TOL = 1e-4
+
+
+def tf32_split(x):
+    """The kernels' (hi, lo) of float32 x, as float32 arrays of TF32 values."""
+    hi = ((x.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    lo = ((x - hi).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, lo
+
+
+def mm(a, b, passes):
+    """Batched a @ b as the kernels form it: TF32 operands, products exact,
+    sums in float32; three passes lo*hi + hi*lo + hi*hi, or one pass hi*hi."""
+    a_hi, a_lo = tf32_split(np.ascontiguousarray(a, np.float32))
+    b_hi, b_lo = tf32_split(np.ascontiguousarray(b, np.float32))
+    if passes == 1:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def emulated_forward(theta, phi, g, passes, pg_passes=None):
+    """(o, lse) with `passes` for theta phi^T and `pg_passes` (default the
+    same) for p g."""
+    s = mm(theta, phi.transpose(0, 2, 1), passes)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    return mm(p, g, pg_passes or passes) / l, (m + np.log(l))[..., 0]
+
+
+def emulated_dkv(theta, phi, g, do, lse, delta, passes):
+    p = np.exp(mm(phi, theta.transpose(0, 2, 1), passes) - lse[:, None, :])   # P^T
+    dg = mm(p, do, passes)
+    ds = p * (mm(g, do.transpose(0, 2, 1), passes) - delta[:, None, :])
+    return mm(ds, theta, passes), dg
+
+
+def _card_inputs(seed, b=2, n=128, m=32, d=16, dv=64):
+    """The card tests' inputs: theta, phi, g as 2 * randn, do as randn."""
+    rng = np.random.default_rng(seed)
+    theta, phi = ((2 * rng.standard_normal((b, k, d))).astype(np.float32) for k in (n, m))
+    g = (2 * rng.standard_normal((b, m, dv))).astype(np.float32)
+    do = rng.standard_normal((b, n, dv)).astype(np.float32)
+    return theta, phi, g, do
+
+
+def _err(ref, got):
+    ref = ref.detach().numpy() if isinstance(ref, torch.Tensor) else ref
+    return float(np.abs(ref - got).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("direction", ["forward", "dkv"])
+def test_three_tf32_passes_keep_float32_accuracy_and_one_does_not(direction):
+    theta, phi, g, do = _card_inputs(20)
+    t = [torch.from_numpy(a) for a in (theta, phi, g, do)]
+    o, lse = port_fused.fused_attention_reference(*t[:3], return_lse=True)
+    if direction == "forward":
+        refs = (o, lse)
+        got = {p: emulated_forward(theta, phi, g, p) for p in (1, 3)}
+        # p g alone in one pass is off too, by less
+        assert _err(o, emulated_forward(theta, phi, g, 3, pg_passes=1)[0]) > TOL
+    else:
+        delta = port_fused.attention_delta(o, t[3])
+        refs = port_fused.attention_bwd_dkv_reference(*t, lse, delta)
+        got = {p: emulated_dkv(theta, phi, g, do, lse.numpy(), delta.numpy(), p)
+               for p in (1, 3)}
+    errs = {p: [_err(r, x) for r, x in zip(refs, outs)] for p, outs in got.items()}
+    assert max(errs[3]) <= TOL, errs
+    assert errs[1][0] > TOL, errs
+
+
+# (B, N, M, d, dv): both instantiations, and a shape no block divides evenly
+BF16_SHAPES = [(2, 64, 16, 4, 16), (2, 48, 12, 16, 64)]
+
+
+def _bf16(*arrays):
+    """numpy f32 -> (jnp bf16, torch bf16) holding the same values."""
+    out = []
+    for a in arrays:
+        x = jnp.asarray(a).astype(jnp.bfloat16)
+        out.append((x, torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()))
+    return out
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_plain_forward_matches_pallas_interpret(shape):
+    theta, phi, g, _ = _card_inputs(21, *shape)
+    (jt, tt), (jp, tp), (jg, tg) = _bf16(theta, phi, g)
+    o_ref, lse_ref = jax_fused_attention(jt, jp, jg, block_n=16, block_m=8,
+                                         interpret=True, return_lse=True)
+    o, lse = port_fused.fused_attention_reference(tt, tp, tg, return_lse=True)
+    assert o.dtype == torch.bfloat16 and o_ref.dtype == jnp.bfloat16
+    assert_close(np.asarray(o_ref.astype(jnp.float32)), o.float(), 1e-2, "o")
+    assert_close(np.asarray(lse_ref), lse, 1e-4, "lse")
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_plain_backward_matches_pallas_interpret(shape):
+    theta, phi, g, do = _card_inputs(22, *shape)
+    (jt, tt), (jp, tp), (jg, tg), (jdo, tdo) = _bf16(theta, phi, g, do)
+    o, lse = jax_fused_attention(jt, jp, jg, block_n=16, block_m=8, interpret=True,
+                                 return_lse=True)
+    refs = jax_fused_attention_bwd(jt, jp, jg, o, lse, jdo, block_n=16, block_m=8,
+                                   interpret=True)
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).bfloat16()
+    got = port_fused.fused_attention_bwd_reference(tt, tp, tg, to,
+                                                   torch.from_numpy(np.array(lse)), tdo)
+    for what, ref, x in zip(("dtheta", "dphi", "dg"), refs, got):
+        assert x.dtype == torch.bfloat16, what
+        assert_close(np.asarray(ref.astype(jnp.float32)), x.float(), 1e-2, what)
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("shape", chip_smoke.ATTENTION_SHAPES)
+def test_dkv_splits_cover_every_query_row_once(shape, sms):
+    b, n, m = shape[:3]
+    splits, rows = port_fused.dkv_splits(b, n, m, sms)
+    assert 1 <= splits <= 65535 and rows % 64 == 0
+    covered = np.zeros(n, np.int64)
+    for s in range(splits):
+        lo, hi = s * rows, min(n, (s + 1) * rows)
+        assert lo < hi, f"split {s} of {splits} is empty"
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+def test_kernels_refuse_data_off_a_16_byte_boundary():
+    # cp.async copies rows in chunks of up to 16 bytes
+    storage = torch.zeros(40)
+    port_fused._check_aligned(storage[:16], storage[4:20])
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        port_fused._check_aligned(storage[:16], storage[1:17])

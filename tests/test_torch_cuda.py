@@ -21,10 +21,14 @@ from txt2vid_tpu_torch.ops.fused_attention import (
 
 pytestmark = pytest.mark.cuda
 
-# (B, N, M, d, dv): both instantiations, tiles that do not divide N or M, and
-# the generator's up1 attention at serving batch 8
+# (B, N, M, d, dv): both instantiations, tiles that do not divide N or M, the
+# generator's up1 attention at serving batch 8, and the discriminator's
+# Attention3d at the training pyramid's smallest and largest scales (4 keys
+# against a 64-row tile; 256 queries in 4 splits of N)
 SHAPES = [(2, 64, 16, 4, 16), (2, 90, 22, 4, 16), (1, 48, 12, 16, 64),
-          (2, 45, 15, 16, 64), (3, 1000, 250, 4, 16), (128, 1024, 256, 4, 16)]
+          (2, 45, 15, 16, 64), (3, 1000, 250, 4, 16), (128, 1024, 256, 4, 16),
+          (40, 16, 4, 16, 64), (5, 256, 64, 16, 64)]
+TRAIN_SHAPE = (40, 1024, 256, 4, 16)
 
 
 @pytest.fixture(autouse=True)
@@ -102,6 +106,16 @@ def test_backward_kernels_match_plain(shape, dtype):
     ref_dphi, ref_dg = attention_bwd_dkv_reference(*args)
     _assert_close(ref_dphi, dphi, tol)
     _assert_close(ref_dg, dg, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkv_repeats_bit_for_bit(dtype):
+    # the training shape cuts N into splits, summed in a fixed order
+    args = _bwd_inputs(TRAIN_SHAPE, dtype)
+    first = attention_bwd_dkv(*args)
+    again = attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.parametrize("shape", SHAPES[:4])

@@ -1,119 +1,203 @@
 // Fused non-local attention forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the Pallas TPU kernel `_attn_kernel` / `fused_attention` in
-// txt2vid_tpu/ops/pallas_attention.py:43-131. Computes, per batch b,
+// Replaces the Pallas TPU kernel `fused_attention` (body `_attn_kernel`) in
+// txt2vid_tpu/ops/pallas_attention.py:87-131 (:43-84). Computes, per batch b,
 //     o   = softmax(theta @ phi^T) @ g          (unscaled logits)
 //     lse = logsumexp(theta @ phi^T, axis=-1)   (optional)
 // for theta (B, N, d), phi (B, M, d), g (B, M, dv), without writing the N x M
 // map to device memory.
 //
-// What bounds it: at the generator's shape (d = 4, dv = 16) every key costs a
-// query row d + dv multiply-adds and one exponential against d + dv floats of
-// K/V, so the work is scalar f32 arithmetic on the CUDA cores (d = 4 is below
-// the tensor cores' K minimum of 16) and device-memory traffic is small beside
-// it. The design keeps the arithmetic on registers and broadcast shared-memory
-// reads: one thread owns one query row (its d query values and dv accumulators
-// live in registers), a block stages tiles of phi and g in shared memory that
-// every thread of a warp reads at the same address (a broadcast, no bank
-// conflicts), and the online softmax rescales the accumulator once per chunk
-// of keys rather than once per key.
+// What bounds it: every logit costs d + dv multiply-adds and one exponential
+// against d + dv values of traffic per row, so it is bound by operations. At
+// the generator's training shape (B, N, M, d, dv) = (40, 1024, 256, 4, 16)
+// the three TF32 passes of both products take 2.5 us at the tensor cores'
+// 495 TFLOP/s, and the 10.5 M exponentials about as long at 16 per SM per
+// clock.
 //
-// Inputs are f32 or bf16; arithmetic is f32. Ragged N and M are masked here
-// (no exact-divisor block search as on the TPU).
+// Design (tensor-core fragments and copies in tc_mma.cuh):
+// - Both products run on the tensor cores through mma.sync: float32 as three
+//   TF32 passes (m16n8k8), which keeps the plain float32 version's accuracy
+//   at logits of tens; bfloat16 as one pass (m16n8k16) with p rounded to bf16
+//   before p @ g, as the TPU kernel does. d is zero-padded to the MMA depth
+//   (8 for TF32, 16 for bf16) while the fragments are built, which is exact.
+// - mma.sync, not wgmma: the exponentials take as long as the products, so
+//   the tensor cores' rate does not bound the kernel, and register fragments
+//   let p flow from one product into the next. wgmma would take g from
+//   shared memory only, transposed for tf32, with hi and lo copies staged.
+// - A block is 4 warps and 64 query rows; a warp owns 16 rows, their theta
+//   fragments held in registers for the whole key loop. The grid is
+//   ceil(N / 64) x B: 640 blocks at the training shape (one wave at 5 blocks
+//   per SM), 2048 at serving's.
+// - Tiles of 64 keys of phi and g stream through a two-stage ring in shared
+//   memory filled by cp.async, so the next tile's copy overlaps this one's
+//   arithmetic.
+// - S = theta phi^T lands in accumulator fragments. The online softmax runs
+//   on them in registers: row max over the lane quad by shuffles, the SFU's
+//   exp2 with log2 e folded in, one rescale of the accumulator per tile. P
+//   feeds P @ g from registers.
+// - The ordinary instructions around the MMAs (TF32 splits, softmax,
+//   shared-memory reads) far outnumber them, so the splits are integer
+//   operations and exp2 is the SFU's bare instruction.
+// - Ragged M: keys past M are zero-filled and get s = -inf. Ragged N: rows
+//   past N are computed on zeros and not stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "tc_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 128;   // query rows per block: one per thread
-constexpr int kTileM = 64;   // key/value rows staged in shared memory per step
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace t2v;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // query rows per block
+constexpr int kTileM = 64;          // keys of phi and g per stage
+// The (4, 16) instantiation is held to 5 blocks per SM (88 registers, no
+// spills; unbounded, ptxas takes 113 and fits 4), so the training shape's
+// 640 blocks run in one wave of 660 slots on 132 SMs.
+constexpr int kMinBlocksD4 = 5;
 
-template <typename T, int D, int DV, int CHUNK>
-__global__ void __launch_bounds__(kRows)
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads, D == 4 ? kMinBlocksD4 : 1)
 attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
                      const T* __restrict__ g, T* __restrict__ o,
                      float* __restrict__ lse, int n, int m) {
-  static_assert(kTileM % CHUNK == 0, "a chunk must not straddle two tiles");
-  __shared__ __align__(16) float s_phi[kTileM][D];
-  __shared__ __align__(16) float s_g[kTileM][DV];
+  using Tr = Mma<T>;
+  constexpr int SD = row_stride<T, D>();
+  constexpr int SV = row_stride<T, DV>();
+  constexpr int KD = (D + Tr::K - 1) / Tr::K;  // MMA steps over d, zero-padded
+  constexpr int NV = DV / 8;                   // accumulator tiles over dv
+  constexpr int NS = kTileM / 8;               // logit tiles per stage
+  static_assert(DV % 8 == 0 && kTileM % Tr::K == 0, "tile shapes");
+  __shared__ __align__(16) T s_phi[2][kTileM * SD];
+  __shared__ __align__(16) T s_g[2][kTileM * SV];
 
+  const int lane = threadIdx.x % 32, r = lane / 4, c = lane % 4;
   const int b = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool live = row < n;
-
-  float q[D];
-  const T* q_src = theta + ((size_t)b * n + (live ? row : 0)) * D;
-#pragma unroll
-  for (int k = 0; k < D; ++k) q[k] = live ? to_f32(q_src[k]) : 0.f;
-
-  float acc[DV];
-#pragma unroll
-  for (int j = 0; j < DV; ++j) acc[j] = 0.f;
-  float run_max = -CUDART_INF_F;
-  float run_sum = 0.f;
-
+  const int row0 = blockIdx.x * kRows + threadIdx.x / 32 * 16;
+  const T* theta_b = theta + (size_t)b * n * D;
   const T* phi_b = phi + (size_t)b * m * D;
   const T* g_b = g + (size_t)b * m * DV;
 
-  for (int m0 = 0; m0 < m; m0 += kTileM) {
-    const int valid = min(kTileM, m - m0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kTileM * D; i += kRows)
-      (&s_phi[0][0])[i] = i / D < valid ? to_f32(phi_b[(size_t)m0 * D + i]) : 0.f;
-    for (int i = threadIdx.x; i < kTileM * DV; i += kRows)
-      (&s_g[0][0])[i] = i / DV < valid ? to_f32(g_b[(size_t)m0 * DV + i]) : 0.f;
-    __syncthreads();
+  typename Tr::A qa[KD];
+#pragma unroll
+  for (int ks = 0; ks < KD; ++ks)
+    qa[ks] = Tr::load_a([&](int i, int k) {
+      return row0 + i < n && k < D ? to_f32(theta_b[(size_t)(row0 + i) * D + k]) : 0.f;
+    }, ks * Tr::K, r, c);
 
-    for (int c0 = 0; c0 < valid; c0 += CHUNK) {
-      float s[CHUNK];
-      float chunk_max = -CUDART_INF_F;
-#pragma unroll
-      for (int k = 0; k < CHUNK; ++k) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < D; ++e) dot = fmaf(q[e], s_phi[c0 + k][e], dot);
-        s[k] = c0 + k < valid ? dot : -CUDART_INF_F;
-        chunk_max = fmaxf(chunk_max, s[k]);
-      }
-      // chunk 0 of tile 0 always holds key 0, so new_max is finite from here on
-      const float new_max = fmaxf(run_max, chunk_max);
-      const float shift = new_max * kLog2e;
-      const float corr = exp2f(fmaf(run_max, kLog2e, -shift));
-      run_sum *= corr;
-#pragma unroll
-      for (int j = 0; j < DV; ++j) acc[j] *= corr;
-#pragma unroll
-      for (int k = 0; k < CHUNK; ++k) {
-        const float p = exp2f(fmaf(s[k], kLog2e, -shift));
-        run_sum += p;
-#pragma unroll
-        for (int j = 0; j < DV; ++j) acc[j] = fmaf(p, s_g[c0 + k][j], acc[j]);
-      }
-      run_max = new_max;
+  // o accumulator: rows r, r + 8 of the warp's 16, columns 8v + 2c, 8v + 2c + 1
+  float acc[NV][4] = {};
+  float run_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float run_sum[2] = {0.f, 0.f};  // this lane's share of the two rows' sums
+
+  const int tiles = (m + kTileM - 1) / kTileM;
+  auto fetch = [&](int tile) {
+    const int valid = min(kTileM, m - tile * kTileM);
+    copy_rows<T, D, SD, kTileM, kThreads>(s_phi[tile % 2], phi_b + (size_t)tile * kTileM * D,
+                                          valid);
+    copy_rows<T, DV, SV, kTileM, kThreads>(s_g[tile % 2], g_b + (size_t)tile * kTileM * DV,
+                                           valid);
+    cp_async_commit();
+  };
+  fetch(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      fetch(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const T* sp = s_phi[tile % 2];
+    const T* sg = s_g[tile % 2];
+    const int valid = min(kTileM, m - tile * kTileM);
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks)
+        Tr::mma(s[j], qa[ks], Tr::load_b([&](int k, int key) {
+          return k < D ? to_f32(sp[key * SD + k]) : 0.f;
+        }, ks * Tr::K, 8 * j, r, c));
+    }
+
+    if (valid < kTileM) {  // the last tile of a ragged M
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * c + (e & 1) >= valid) s[j][e] = -CUDART_INF_F;
+    }
+    float tile_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tile_max[e / 2] = fmaxf(tile_max[e / 2], s[j][e]);
+    float corr[2], shift[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 1));
+      tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 2));
+      // tile 0 holds key 0, so the running max is finite from there on
+      const float new_max = fmaxf(run_max[i], tile_max[i]);
+      shift[i] = new_max * kLog2e;
+      corr[i] = exp2_approx(fmaf(run_max[i], kLog2e, -shift[i]));
+      run_max[i] = new_max;
+      run_sum[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(fmaf(s[j][e], kLog2e, -shift[e / 2]));
+        run_sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[v][e] *= corr[e / 2];
+
+#pragma unroll
+    for (int ks = 0; ks < kTileM / Tr::K; ++ks) {
+      const typename Tr::A pa = Tr::from_acc(s, ks);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        Tr::mma(acc[v], pa, Tr::load_b_perm([&](int key, int col) {
+          return to_f32(sg[key * SV + col]);
+        }, ks * Tr::K, 8 * v, r, c));
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  if (!live) return;
-  const float inv = 1.f / run_sum;
-  T* o_dst = o + ((size_t)b * n + row) * DV;
 #pragma unroll
-  for (int j = 0; j < DV; ++j) store(o_dst + j, acc[j] * inv);
-  if (lse != nullptr) lse[(size_t)b * n + row] = run_max + logf(run_sum);
+  for (int i = 0; i < 2; ++i) {
+    run_sum[i] += __shfl_xor_sync(0xffffffffu, run_sum[i], 1);
+    run_sum[i] += __shfl_xor_sync(0xffffffffu, run_sum[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    if (row >= n) continue;
+    const float inv = 1.f / run_sum[i];
+    T* dst = o + ((size_t)b * n + row) * DV + 2 * c;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      store(dst + 8 * v, acc[v][2 * i] * inv);
+      store(dst + 8 * v + 1, acc[v][2 * i + 1] * inv);
+    }
+    if (lse != nullptr && c == 0) lse[(size_t)b * n + row] = run_max[i] + logf(run_sum[i]);
+  }
 }
 
-template <typename T, int D, int DV, int CHUNK>
+template <typename T, int D, int DV>
 cudaError_t launch(const void* theta, const void* phi, const void* g, void* o,
                    void* lse, int b, int n, int m, cudaStream_t stream) {
   const dim3 grid((n + kRows - 1) / kRows, b);
-  attention_fwd_kernel<T, D, DV, CHUNK><<<grid, kRows, 0, stream>>>(
+  attention_fwd_kernel<T, D, DV><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(theta), static_cast<const T*>(phi),
       static_cast<const T*>(g), static_cast<T*>(o), static_cast<float*>(lse), n, m);
   return cudaGetLastError();
@@ -123,10 +207,19 @@ template <typename T>
 cudaError_t dispatch(const void* theta, const void* phi, const void* g, void* o,
                      void* lse, int b, int n, int m, int d, int dv,
                      cudaStream_t stream) {
+  if (d == 4 && dv == 16) return launch<T, 4, 16>(theta, phi, g, o, lse, b, n, m, stream);
+  if (d == 16 && dv == 64) return launch<T, 16, 64>(theta, phi, g, o, lse, b, n, m, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t occupancy(int d, int dv, int* blocks_per_sm) {
   if (d == 4 && dv == 16)
-    return launch<T, 4, 16, 32>(theta, phi, g, o, lse, b, n, m, stream);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_fwd_kernel<T, 4, 16>, kThreads, 0);
   if (d == 16 && dv == 64)
-    return launch<T, 16, 64, 16>(theta, phi, g, o, lse, b, n, m, stream);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_fwd_kernel<T, 16, 64>, kThreads, 0);
   return cudaErrorInvalidValue;
 }
 
@@ -143,5 +236,17 @@ extern "C" int t2v_attention_fwd(const void* theta, const void* phi, const void*
   if (dtype == 0) err = dispatch<float>(theta, phi, g, o, lse, b, n, m, d, dv, s);
   else if (dtype == 1) err = dispatch<__nv_bfloat16>(theta, phi, g, o, lse, b, n, m, d, dv, s);
   else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// out[0] = blocks of one instantiation that one SM holds at once (registers
+// and shared memory permitting), out[1] = threads per block.
+extern "C" int t2v_attention_fwd_occupancy(int d, int dv, int dtype, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 0) err = occupancy<float>(d, dv, out);
+  else if (dtype == 1) err = occupancy<__nv_bfloat16>(d, dv, out);
+  else err = cudaErrorInvalidValue;
+  out[1] = kThreads;
   return static_cast<int>(err);
 }

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one source under `txt2vid_tpu_torch/csrc/` with a plain C
-interface. It is compiled on first use with `nvcc` for `sm_90a` into a shared
-library under `build/txt2vid_tpu_torch/` at the checkout's root, keyed by a hash
-of its source and flags, and loaded with ctypes. Nothing here runs at import.
+interface; headers shared between sources (`csrc/*.cuh`) sit beside them. It
+is compiled on first use with `nvcc` for `sm_90a` into a shared library under
+`build/txt2vid_tpu_torch/` at the checkout's root, keyed by a hash of its
+source, the headers and the flags, and loaded with ctypes. Nothing here runs at
+import.
 """
 
 import ctypes
@@ -35,8 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 

@@ -15,11 +15,12 @@ nvcc for sm_90a and bound with ctypes (ops/_build.py).
 
 What bounds them on an H100: at the generator's training shape (B, N, M, d, dv)
 = (40, 1024, 256, 4, 16) K1 does 2*B*N*M*(d + dv) = 0.42 GFLOP, K2
-2*B*N*M*(2d + dv) = 0.50 GFLOP and K3 2*B*N*M*(2d + 2dv) = 0.84 GFLOP of scalar
-f32 work against about 5 MB of traffic each, so the CUDA cores' f32 rate is
-the floor (d = 4 is below the tensor cores' K of 16). Each kernel keeps one
-row's operands and accumulators in registers and broadcasts tiles of the other
-side from shared memory (see the sources' notes).
+2*B*N*M*(2d + dv) = 0.50 GFLOP and K3 2*B*N*M*(2d + 2dv) = 0.84 GFLOP and 10.5 M
+exponentials each, against about 5 MB of traffic, so operations bound them.
+K1 and K3 run their products on the tensor cores (mma.sync; float32 as three
+TF32 passes, d zero-padded to the MMA depth of 8, or 16 in bfloat16); K2 is
+scalar float32 on the CUDA cores, one query row per thread (see the sources'
+notes).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it computes its plain version (`*_reference`)
@@ -37,18 +38,24 @@ from txt2vid_tpu_torch.ops import _build
 # at 32 channels and the discriminator's Attention3d at 128 channels
 SUPPORTED_DV = {4: 16, 16: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# K3 splits N across blocks when B * ceil(M / 128) blocks would not fill the
-# card; each split handles a multiple of the kernel's 64-row tile
-_DKV_KEYS_PER_BLOCK = 128
+# the kernels' tiles: K1 64 query rows per block; K3 64 keys per block and
+# stages of 64 query rows. K3 splits N across blocks when B * ceil(M / 64)
+# blocks would not put _DKV_BLOCKS_PER_SM on every SM; each split handles a
+# multiple of the 64-row stage
+_FWD_ROWS_PER_BLOCK = 64
+_DKV_KEYS_PER_BLOCK = 64
 _DKV_TILE_N = 64
-_DKV_TARGET_BLOCKS = 4 * 132
+_DKV_BLOCKS_PER_SM = 4
+_DKV_MAX_SPLITS = 16
 
 
 def fused_attention_reference(theta, phi, g, return_lse: bool = False):
-    """Plain version of K1: einsum and softmax in f32, o cast to g's dtype."""
+    """Plain version of K1: einsum and softmax in f32, the softmax cast to g's
+    dtype before it meets g (the TPU kernel's cast, pallas_attention.py:71),
+    o cast to g's dtype."""
     logits = torch.einsum("bnd,bmd->bnm", theta.float(), phi.float())
-    o = torch.einsum("bnm,bmv->bnv", torch.softmax(logits, dim=-1), g.float())
-    o = o.to(g.dtype)
+    p = torch.softmax(logits, dim=-1).to(g.dtype).float()
+    o = torch.einsum("bnm,bmv->bnv", p, g.float()).to(g.dtype)
     if return_lse:
         return o, torch.logsumexp(logits, dim=-1)
     return o
@@ -74,11 +81,13 @@ def attention_bwd_dq_reference(theta, phi, g, do, lse, delta):
 
 def attention_bwd_dkv_reference(theta, phi, g, do, lse, delta):
     """Plain version of K3: dphi = ds^T @ theta and dg = p^T @ do, each cast to
-    its input's dtype."""
+    its input's dtype; p and ds are cast to do's and theta's dtype before
+    their products, as the TPU kernel does (pallas_attention.py:191, :198)."""
     p = _probs(theta, phi, lse)
     ds = _dlogits(p, g, do, delta)
-    dphi = torch.einsum("bnm,bnd->bmd", ds, theta.float()).to(phi.dtype)
-    dg = torch.einsum("bnm,bnv->bmv", p, do.float()).to(g.dtype)
+    dphi = torch.einsum("bnm,bnd->bmd", ds.to(theta.dtype).float(),
+                        theta.float()).to(phi.dtype)
+    dg = torch.einsum("bnm,bnv->bmv", p.to(do.dtype).float(), do.float()).to(g.dtype)
     return dphi, dg
 
 
@@ -130,6 +139,14 @@ def _check_kernel(b, n, m, d, dv):
         raise ValueError("N or M too large for the kernels' int32 row indices")
 
 
+def _check_aligned(*tensors):
+    """The kernels copy rows into shared memory in chunks of up to 16 bytes."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the attention kernels take tensors whose data start "
+                             "on a 16-byte boundary; pass a fresh copy")
+
+
 def _check_rows(name, t, shape, dtype):
     """A per-row operand of the backward: do (B, N, dv) or lse / delta (B, N)."""
     if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != shape \
@@ -150,12 +167,17 @@ def _kernel(name):
                            b, n, m, d, dv, dtype, device, stream)
       t2v_attention_bwd_dkv(theta, phi, g, do, lse, delta, dphi, dg, scratch,
                             splits, rows_per_split, b, n, m, d, dv, dtype, device, stream)
-    Pointers and the stream are c_void_p: untyped, ctypes would pass 32 bits."""
-    lib, pointers, ints = {"t2v_attention_fwd": ("attention_fwd", 5, 7),
-                           "t2v_attention_bwd_dq": ("attention_bwd", 7, 7),
-                           "t2v_attention_bwd_dkv": ("attention_bwd", 9, 9)}[name]
+      t2v_attention_fwd_occupancy / t2v_attention_bwd_dkv_occupancy(d, dv, dtype,
+                            device, out): out = (blocks per SM, threads per block)
+    Pointers and the stream are c_void_p ("p"): untyped, ctypes would pass 32
+    bits; ints are c_int ("i")."""
+    lib, sig = {"t2v_attention_fwd": ("attention_fwd", "ppppp" "iiiiiii" "p"),
+                "t2v_attention_fwd_occupancy": ("attention_fwd", "iiii" "p"),
+                "t2v_attention_bwd_dq": ("attention_bwd", "ppppppp" "iiiiiii" "p"),
+                "t2v_attention_bwd_dkv": ("attention_bwd", "ppppppppp" "iiiiiiiii" "p"),
+                "t2v_attention_bwd_dkv_occupancy": ("attention_bwd", "iiii" "p")}[name]
     fn = getattr(_build.load(lib), name)
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    fn.argtypes = [{"p": ctypes.c_void_p, "i": ctypes.c_int}[x] for x in sig]
     fn.restype = ctypes.c_int
     return fn
 
@@ -174,6 +196,7 @@ def fused_attention(theta, phi, g, return_lse: bool = False):
     if theta.device.type == "cpu":
         return fused_attention_reference(theta, phi, g, return_lse)
     _check_kernel(b, n, m, d, dv)
+    _check_aligned(theta, phi, g)
     o = torch.empty((b, n, dv), dtype=g.dtype, device=g.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=g.device) \
         if return_lse else None
@@ -193,6 +216,7 @@ def _check_bwd(theta, phi, g, do, lse, delta):
         _check_rows("do", do, (b, n, dv), g.dtype)
         _check_rows("lse", lse, (b, n), torch.float32)
         _check_rows("delta", delta, (b, n), torch.float32)
+        _check_aligned(theta, phi, g, do)
     return b, n, m, d, dv
 
 
@@ -212,13 +236,21 @@ def attention_bwd_dq(theta, phi, g, do, lse, delta):
     return dtheta
 
 
-def dkv_splits(b, n, m):
+@functools.cache
+def sm_count(device_index):
+    """Streaming multiprocessors of the CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def dkv_splits(b, n, m, sms):
     """(splits, rows_per_split): how K3 cuts N across blocks so that about
-    _DKV_TARGET_BLOCKS blocks are in flight; 1 split writes the outputs
-    directly, more go through an f32 scratch and a fixed-order reduction."""
+    _DKV_BLOCKS_PER_SM blocks are in flight on each of `sms` SMs. Split s
+    covers query rows [s * rows, min(n, (s + 1) * rows)), a whole number of
+    64-row stages, none empty. 1 split writes the outputs directly; more go
+    through an f32 scratch and a fixed-order reduction."""
     blocks = b * -(-m // _DKV_KEYS_PER_BLOCK)
     tiles = -(-n // _DKV_TILE_N)
-    want = max(1, min(tiles, 16, -(-_DKV_TARGET_BLOCKS // blocks)))
+    want = max(1, min(tiles, _DKV_MAX_SPLITS, -(-_DKV_BLOCKS_PER_SM * sms // blocks)))
     rows = -(-tiles // want) * _DKV_TILE_N
     return -(-n // rows), rows
 
@@ -231,7 +263,7 @@ def attention_bwd_dkv(theta, phi, g, do, lse, delta):
         return attention_bwd_dkv_reference(theta, phi, g, do, lse, delta)
     dphi = torch.empty_like(phi)
     dg = torch.empty_like(g)
-    splits, rows = dkv_splits(b, n, m)
+    splits, rows = dkv_splits(b, n, m, sm_count(theta.device.index))
     scratch = (torch.empty((splits, b * m * (d + dv)), dtype=torch.float32,
                            device=g.device) if splits > 1 else None)
     err = _kernel("t2v_attention_bwd_dkv")(
@@ -251,6 +283,25 @@ def fused_attention_bwd(theta, phi, g, o, lse, do):
     dtheta = attention_bwd_dq(theta, phi, g, do, lse, delta)
     dphi, dg = attention_bwd_dkv(theta, phi, g, do, lse, delta)
     return dtheta, dphi, dg
+
+
+def occupancy(kernel, shape, dtype=torch.float32, device_index=0):
+    """How K1 ("attention_fwd") or K3 ("attention_bwd_dkv") fills the card at
+    (B, N, M, d, dv): blocks per SM that registers and shared memory allow,
+    warps per block, blocks in the grid, and the resident warps per SM, the
+    fewer of what the SM holds and what the grid supplies."""
+    b, n, m, d, dv = shape
+    out = (ctypes.c_int * 2)()
+    err = _kernel(f"t2v_{kernel}_occupancy")(d, dv, _DTYPE_CODE[dtype], device_index, out)
+    _raise_on(err, f"{kernel} occupancy")
+    sms = sm_count(device_index)
+    if kernel == "attention_fwd":
+        grid = b * -(-n // _FWD_ROWS_PER_BLOCK)
+    else:
+        grid = b * -(-m // _DKV_KEYS_PER_BLOCK) * dkv_splits(b, n, m, sms)[0]
+    warps = out[1] // 32
+    return {"blocks_per_sm": out[0], "warps_per_block": warps, "grid_blocks": grid,
+            "resident_warps_per_sm": min(out[0] * warps, grid * warps / sms)}
 
 
 fused_attention.launches = 0
