@@ -9,14 +9,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build: every CUDA kernel of the port, from txt2vid_tpu_torch/csrc, with nvcc
    (registers, shared memory and spills as ptxas reports them), and the count
    of tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in each
-   kernel's SASS, read with cuobjdump. Fails if K1 or K3 has none.
+   kernel's SASS, read with cuobjdump. Fails if K1, K2 or K3 has none.
 3. kernels: each kernel (K1 the attention forward, K2 and K3 its backward)
    against its plain PyTorch version on the card, at the main paths' shapes,
-   the parity shapes of tpu_checks.py and a ragged shape, in float32 and
-   bfloat16; K3 run twice at the training shape must agree bit for bit. Then
-   each kernel's time beside the plain version's and one PyTorch library
-   call's that computes the same function, its bounds and the resident warps
-   per SM, at the serving and training shapes and at the discriminator's four
+   the parity shapes of tpu_checks.py and ragged shapes, in float32 and
+   bfloat16; K2 and K3 run twice at REPEAT_SHAPES must agree bit for bit.
+   Then each kernel's time beside the plain version's and one PyTorch library
+   call's that computes the same function (per call, and per call in a CUDA
+   graph where it captures), its bounds and the resident warps per SM, at
+   the serving and training shapes and at the discriminator's four
    training shapes (D_TRAIN_SHAPES, nested under "d_shapes"). K1's record
    keeps the serving shape and the serve phase's launches; its training shape
    is nested under "train_shape". K2 and K3 records hold the training shape.
@@ -36,7 +37,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 With --baseline DIR (another checkout's root, e.g. the parent commit's
 `git archive` unpacked under build/), a phase compare after the kernels phase
-times that checkout's K1 and K3, built from its own sources, beside this
+times that checkout's K1, K2 and K3, built from its own sources, beside this
 one's at the same shapes, in the order baseline, this, this, baseline.
 
 The line before the last is {"kernels": [...]}; the last is
@@ -78,14 +79,18 @@ PEAK_TF32_FLOP_PER_S = 495e12
 # (B, N, M, d, dv): the generator's up1 attention serving batch 8 (128 frames
 # of 32x32) and training batch 40 (after two subsamples, 40 frames of 32x32),
 # the discriminator's Attention3d at the training pyramid's four scales, the
-# parity shapes of tpu_checks.py, and shapes no tile divides
+# parity shapes of tpu_checks.py, and shapes no tile divides (the last, with
+# 3 chunks of 16 keys, is where K2 splits a query tile's keys 2 ways)
 SERVE_SHAPE = (128, 1024, 256, 4, 16)
 TRAIN_SHAPE = (40, 1024, 256, 4, 16)
 D_TRAIN_SHAPES = [(40, 16, 4, 16, 64), (20, 32, 8, 16, 64), (10, 64, 16, 16, 64),
                   (5, 256, 64, 16, 64)]
 ATTENTION_SHAPES = [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES, (2, 1024, 256, 16, 64),
                     (4, 4096, 1024, 16, 64), (2, 1024, 256, 4, 16), (1, 64, 16, 16, 64),
-                    (3, 1000, 250, 4, 16), (2, 45, 15, 16, 64)]
+                    (3, 1000, 250, 4, 16), (2, 45, 15, 16, 64), (2, 100, 40, 16, 64)]
+# K2 and K3 run twice on the same inputs must agree bit for bit here: the
+# generator's shape and the discriminator's largest (K2 splits its keys 4 ways)
+REPEAT_SHAPES = [TRAIN_SHAPE, (5, 256, 64, 16, 64)]
 # float32: max|diff| <= 1e-4 * max(1, max|ref|), summation order only. bfloat16:
 # the same bf16 inputs through the plain f32 version; the kernel rounds o to
 # bf16 (8 bits of mantissa, 4e-3 relative), so o takes 1e-2, lse (f32) 1e-4.
@@ -104,7 +109,7 @@ KERNELS = {"attention_fwd": fused_attention, "attention_bwd_dq": attention_bwd_d
            "attention_bwd_dkv": attention_bwd_dkv}
 BWD_OUTPUTS = {"attention_bwd_dq": ("dtheta",), "attention_bwd_dkv": ("dphi", "dg")}
 # kernels that must show tensor-core instructions in their SASS
-TENSOR_CORE_KERNELS = ("attention_fwd", "attention_bwd_dkv")
+TENSOR_CORE_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
 # multiply-adds per (query, key) pair: K1 theta.phi and p.g; K2 theta.phi,
 # do.g and ds.phi; K3 theta.phi, do.g, p.do and ds.theta
 PAIR_MACS = {"attention_fwd": lambda d, dv: d + dv,
@@ -145,13 +150,17 @@ def cuda_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def graph_ms(fn, launches=20, reps=10):
+def graph_ms(fn, launches=20, reps=10, stream=None):
     """Median device ms of one call, from a CUDA graph of `launches` calls
-    replayed `reps` times: no host time between launches."""
-    fn()
+    (warmed up and captured on `stream`, default a new one) replayed `reps`
+    times: no host time between launches."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
     graph.replay()
@@ -168,6 +177,18 @@ def graph_ms(fn, launches=20, reps=10):
     return statistics.median(times)
 
 
+def library_graph_ms(fn, what, stream=None):
+    """graph_ms of a library call, or None, printed, where it does not
+    capture in a CUDA graph."""
+    try:
+        return graph_ms(fn, stream=stream)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"phase kernels: {what} does not capture in a CUDA graph: "
+              f"{str(e).strip().splitlines()[0]}")
+        return None
+
+
 def attention_inputs(shape, dtype, seed):
     b, n, m, d, dv = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -182,8 +203,8 @@ def bounds(shape, dtype, kernel):
     operations over a peak rate, whichever is larger (exponentials not
     counted). Returns {bound_ms, bound_by} against the f32 rate outside the
     tensor cores, as earlier records hold, and {tc_bound_ms, tc_bound_by}
-    against three TF32 passes on the tensor cores, the float32 design of K1
-    and K3."""
+    against three TF32 passes on the tensor cores, the float32 design of the
+    kernels."""
     b, n, m, d, dv = shape
     isz = torch.finfo(dtype).bits // 8
     nbytes = isz * (b * n * d + b * m * d + b * m * dv)
@@ -302,15 +323,18 @@ def time_forward(shape, seed):
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(theta, phi, g, scale=1.0)
     sdpa_err, _ = max_err(fused_attention_reference(theta, phi, g), sdpa())
     library_ms = cuda_ms(sdpa)
+    library_device_ms = library_graph_ms(sdpa, "scaled_dot_product_attention")
     bound = bounds(shape, torch.float32, "attention_fwd")
     occ = occupancy("attention_fwd", shape)
     print(f"phase kernels: attention_fwd at {shape} float32: kernel {ms:.4f} ms "
           f"(in a CUDA graph {device_ms:.4f}), plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {library_ms:.4f} ms (its max|diff| {sdpa_err:.3g}), "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (in a CUDA graph "
+          f"{library_device_ms}; its max|diff| {sdpa_err:.3g}), "
           f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, tensor-core bound "
           f"{bound['tc_bound_ms']:.4f} ms by {bound['tc_bound_by']}, {occ}")
     return {"ms": ms, "graph_ms": device_ms, "plain_ms": plain_ms, **bound,
-            "library_ms": library_ms, "resident_warps_per_sm": occ["resident_warps_per_sm"],
+            "library_ms": library_ms, "library_graph_ms": library_device_ms,
+            "resident_warps_per_sm": occ["resident_warps_per_sm"],
             "shape": list(shape), "dtype": "float32"}
 
 
@@ -351,12 +375,16 @@ def phase_attention_bwd(seed):
             if shape == TRAIN_SHAPE and dtype == torch.float32:
                 train_err = {w: e for w, (e, _) in errs.items()}
 
-    args = bwd_inputs(TRAIN_SHAPE, torch.float32, seed)
-    first, again = attention_bwd_dkv(*args), attention_bwd_dkv(*args)
-    torch.cuda.synchronize()
-    check(all(torch.equal(x, y) for x, y in zip(first, again)),
-          f"attention_bwd_dkv is not repeatable bit for bit at {TRAIN_SHAPE}")
-    print(f"phase kernels: attention_bwd_dkv at {TRAIN_SHAPE} float32 repeats bit for bit")
+    for shape in REPEAT_SHAPES:
+        args = bwd_inputs(shape, torch.float32, seed)
+        for name, kernel in (("attention_bwd_dq", attention_bwd_dq),
+                             ("attention_bwd_dkv", attention_bwd_dkv)):
+            first, again = kernel(*args), kernel(*args)
+            torch.cuda.synchronize()
+            first, again = ((x,) if torch.is_tensor(x) else x for x in (first, again))
+            check(all(torch.equal(x, y) for x, y in zip(first, again)),
+                  f"{name} is not repeatable bit for bit at {shape}")
+            print(f"phase kernels: {name} at {shape} float32 repeats bit for bit")
 
     records = time_backward(TRAIN_SHAPE, seed)
     per_shape = [time_backward(shape, seed) for shape in D_TRAIN_SHAPES]
@@ -368,15 +396,27 @@ def phase_attention_bwd(seed):
 
 def time_backward(shape, seed):
     """K2's and K3's float32 times at `shape` beside their plain versions',
-    the SDPA backward's (dtheta, dphi and dg together) and their bounds."""
+    the SDPA backward's (dtheta, dphi and dg together), their bounds and the
+    warps per SM they keep resident."""
     args = bwd_inputs(shape, torch.float32, seed)
     theta, phi, g, do = args[:4]
     q, k, v = (t.detach().requires_grad_() for t in (theta, phi, g))
-    o_lib = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+    o_lib = sdpa()
     library = lambda: torch.autograd.grad(o_lib, (q, k, v), do, retain_graph=True)
     lib_err = max(max_err(r, l)[0] for r, l in zip(
         (attention_bwd_dq_reference(*args), *attention_bwd_dkv_reference(*args)), library()))
     library_ms = cuda_ms(library)
+    # a backward's ops run on its forward's stream: for a graph, the forward
+    # (and its leaves' nodes) on the stream the graph captures on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().requires_grad_() for t in (theta, phi, g)]
+        o_side = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=1.0)
+    library_device_ms = library_graph_ms(
+        lambda: torch.autograd.grad(o_side, leaves, do, retain_graph=True),
+        "scaled_dot_product_attention backward", stream=side)
     records = []
     for name, kernel, plain in (
             ("attention_bwd_dq", attention_bwd_dq, attention_bwd_dq_reference),
@@ -385,23 +425,24 @@ def time_backward(shape, seed):
         device_ms = graph_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
         bound = bounds(shape, torch.float32, name)
-        warps = (occupancy(name, shape)["resident_warps_per_sm"]
-                 if name == "attention_bwd_dkv" else None)
+        warps = occupancy(name, shape)["resident_warps_per_sm"]
         print(f"phase kernels: {name} at {shape} float32: kernel {ms:.4f} ms (in a CUDA "
               f"graph {device_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
-              f"ms by {bound['bound_by']}, tensor-core bound {bound['tc_bound_ms']:.4f} ms"
-              + (f", {warps:.2f} resident warps per SM" if warps is not None else ""))
+              f"ms by {bound['bound_by']}, tensor-core bound {bound['tc_bound_ms']:.4f} ms, "
+              f"{warps:.2f} resident warps per SM")
         records.append({
             "name": name, "route": "cuda", "source": "txt2vid_tpu_torch/csrc/attention_bwd.cu",
             "replaces": ("txt2vid_tpu/ops/pallas_attention.py:141" if name == "attention_bwd_dq"
                          else "txt2vid_tpu/ops/pallas_attention.py:171"),
             "launches": None, "ms": ms, "graph_ms": device_ms,
             "plain_ms": plain_ms, **bound, "library_ms": library_ms,
+            "library_graph_ms": library_device_ms,
             "library_computes": "dtheta, dphi and dg together",
             "resident_warps_per_sm": warps, "shape": list(shape), "dtype": "float32"})
     print(f"phase kernels: scaled_dot_product_attention backward (dtheta, dphi, dg) at "
-          f"{shape} float32: {library_ms:.4f} ms (its max|diff| {lib_err:.3g}); "
-          f"K2 + K3 {records[0]['ms'] + records[1]['ms']:.4f} ms")
+          f"{shape} float32: {library_ms:.4f} ms (in a CUDA graph {library_device_ms}; its "
+          f"max|diff| {lib_err:.3g}); K2 + K3 {records[0]['ms'] + records[1]['ms']:.4f} ms "
+          f"(in a CUDA graph {records[0]['graph_ms'] + records[1]['graph_ms']:.4f})")
     return records
 
 
@@ -419,18 +460,21 @@ def load_baseline(root):
 
 
 def phase_compare(root, seed):
-    """K1 and K3 of the checkout at `root` and of this one, float32, timed in
-    turns on the same inputs, each checked against this one's plain version."""
+    """K1, K2 and K3 of the checkout at `root` and of this one, float32, timed
+    in turns on the same inputs, each checked against this one's plain
+    version."""
     base = load_baseline(root)
     print(f"phase compare: baseline {root} built in {base._build.build_all():.2f} s")
     this = sys.modules[fused_attention.__module__]
-    for name, shapes in (("fused_attention", [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES]),
-                         ("attention_bwd_dkv", [TRAIN_SHAPE, *D_TRAIN_SHAPES])):
+    for name, plain_fn, shapes in (
+            ("fused_attention", fused_attention_reference,
+             [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES]),
+            ("attention_bwd_dq", attention_bwd_dq_reference, [TRAIN_SHAPE, *D_TRAIN_SHAPES]),
+            ("attention_bwd_dkv", attention_bwd_dkv_reference, [TRAIN_SHAPE, *D_TRAIN_SHAPES])):
         for shape in shapes:
             args = (attention_inputs(shape, torch.float32, seed) if name == "fused_attention"
                     else bwd_inputs(shape, torch.float32, seed))
-            plain = (fused_attention_reference(*args) if name == "fused_attention"
-                     else attention_bwd_dkv_reference(*args))
+            plain = plain_fn(*args)
             times = {"baseline": [], "this": []}
             for tag, mod in (("baseline", base), ("this", this), ("this", this),
                              ("baseline", base)):
@@ -593,7 +637,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--baseline", metavar="DIR",
-                   help="another checkout whose K1 and K3 to time beside this one's")
+                   help="another checkout whose K1, K2 and K3 to time beside this one's")
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU")

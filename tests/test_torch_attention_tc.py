@@ -1,19 +1,21 @@
-"""The numerics and geometry of the tensor-core attention kernels (K1 and K3),
-checked on the CPU.
+"""The numerics and geometry of the tensor-core attention kernels (K1, K2 and
+K3), checked on the CPU.
 
 - Three TF32 passes: a numpy emulation of the kernels' split (hi rounded to
   TF32 to nearest, lo = x - hi truncated to TF32) and products shows that three
   passes stay within the card tests' 1e-4 * max(1, max|ref|) of the plain
   float32 versions at their logit scale (2 * randn, d = 16, dv = 64), and that
   one pass does not.
-- bfloat16: the plain versions of K1 and K3, which round p and ds to bf16 before
-  their products as the TPU kernels do, against the JAX package's Pallas
-  kernels in interpret mode with bf16 inputs and small blocks. o and the
-  gradients 1e-2 * scale (each side rounds to bf16 in its own place: p
+- bfloat16: the plain versions of K1, K2 and K3, which round p and ds to bf16
+  before their products as the TPU kernels do, against the JAX package's
+  Pallas kernels in interpret mode with bf16 inputs and small blocks. o and
+  the gradients 1e-2 * scale (each side rounds to bf16 in its own place: p
   relative to the running max there, the final one here); lse 1e-4 * scale
-  (f32 logits of bf16 inputs summed in another order).
-- K3's split of N across blocks covers every query row exactly once, and the
-  kernels refuse data that does not start on a 16-byte boundary.
+  (f32 logits of bf16 inputs summed in another order); K2's dtheta alone 1e-4
+  * scale (the same roundings on both sides, f32 sums in another order).
+- K3's split of N across blocks covers every query row exactly once, K2's
+  split of M among a query tile's warps every key of every tile exactly once,
+  and the kernels refuse data that does not start on a 16-byte boundary.
 """
 
 import jax.numpy as jnp
@@ -57,6 +59,12 @@ def emulated_forward(theta, phi, g, passes, pg_passes=None):
     return mm(p, g, pg_passes or passes) / l, (m + np.log(l))[..., 0]
 
 
+def emulated_dq(theta, phi, g, do, lse, delta, passes):
+    p = np.exp(mm(theta, phi.transpose(0, 2, 1), passes) - lse[..., None])
+    ds = p * (mm(do, g.transpose(0, 2, 1), passes) - delta[..., None])
+    return (mm(ds, phi, passes),)
+
+
 def emulated_dkv(theta, phi, g, do, lse, delta, passes):
     p = np.exp(mm(phi, theta.transpose(0, 2, 1), passes) - lse[:, None, :])   # P^T
     dg = mm(p, do, passes)
@@ -78,7 +86,7 @@ def _err(ref, got):
     return float(np.abs(ref - got).max()) / max(1.0, float(np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("direction", ["forward", "dkv"])
+@pytest.mark.parametrize("direction", ["forward", "dq", "dkv"])
 def test_three_tf32_passes_keep_float32_accuracy_and_one_does_not(direction):
     theta, phi, g, do = _card_inputs(20)
     t = [torch.from_numpy(a) for a in (theta, phi, g, do)]
@@ -90,8 +98,12 @@ def test_three_tf32_passes_keep_float32_accuracy_and_one_does_not(direction):
         assert _err(o, emulated_forward(theta, phi, g, 3, pg_passes=1)[0]) > TOL
     else:
         delta = port_fused.attention_delta(o, t[3])
-        refs = port_fused.attention_bwd_dkv_reference(*t, lse, delta)
-        got = {p: emulated_dkv(theta, phi, g, do, lse.numpy(), delta.numpy(), p)
+        plain, emulated = {"dq": (port_fused.attention_bwd_dq_reference, emulated_dq),
+                           "dkv": (port_fused.attention_bwd_dkv_reference, emulated_dkv)
+                           }[direction]
+        refs = plain(*t, lse, delta)
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        got = {p: emulated(theta, phi, g, do, lse.numpy(), delta.numpy(), p)
                for p in (1, 3)}
     errs = {p: [_err(r, x) for r, x in zip(refs, outs)] for p, outs in got.items()}
     assert max(errs[3]) <= TOL, errs
@@ -139,6 +151,25 @@ def test_bf16_plain_backward_matches_pallas_interpret(shape):
         assert_close(np.asarray(ref.astype(jnp.float32)), x.float(), 1e-2, what)
 
 
+@pytest.mark.parametrize("shape", [*BF16_SHAPES, (2, 256, 64, 16, 64)])
+def test_bf16_plain_dq_rounds_ds_as_pallas_does(shape):
+    # K2's plain version rounds ds to bf16 before ds @ phi, as the TPU kernel
+    # does; the two then differ only in f32 summation order, far below bf16's
+    # 4e-3 rounding of dtheta
+    theta, phi, g, do = _card_inputs(22, *shape)
+    (jt, tt), (jp, tp), (jg, tg), (jdo, tdo) = _bf16(theta, phi, g, do)
+    o, lse = jax_fused_attention(jt, jp, jg, block_n=16, block_m=8, interpret=True,
+                                 return_lse=True)
+    ref = jax_fused_attention_bwd(jt, jp, jg, o, lse, jdo, block_n=16, block_m=8,
+                                  interpret=True)[0]
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).bfloat16()
+    tl = torch.from_numpy(np.array(lse))
+    got = port_fused.attention_bwd_dq_reference(tt, tp, tg, tdo, tl,
+                                                port_fused.attention_delta(to, tdo))
+    assert got.dtype == torch.bfloat16
+    assert_close(np.asarray(ref.astype(jnp.float32)), got.float(), 1e-4, "dtheta")
+
+
 @pytest.mark.parametrize("sms", [1, 114, 132])
 @pytest.mark.parametrize("shape", chip_smoke.ATTENTION_SHAPES)
 def test_dkv_splits_cover_every_query_row_once(shape, sms):
@@ -151,6 +182,32 @@ def test_dkv_splits_cover_every_query_row_once(shape, sms):
         assert lo < hi, f"split {s} of {splits} is empty"
         covered[lo:hi] += 1
     assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("shape", chip_smoke.ATTENTION_SHAPES)
+def test_dq_splits_cover_every_key_of_every_query_tile_once(shape, sms):
+    # K2's geometry: a block of 4 warps holds 4 / splits query tiles of 16
+    # rows; warp w is slot w % splits of tile w // splits and takes the 16-key
+    # chunks slot, slot + splits, ... of each 64-key stage
+    b, n, m = shape[:3]
+    splits = port_fused.dq_splits(b, n, m, sms)
+    assert splits in (1, 2, 4)
+    if shape == chip_smoke.TRAIN_SHAPE and sms > 1:
+        assert splits == 1      # the generator's shape keeps K1's layout
+    taken = {}                  # first row of a query tile -> times each key is taken
+    for x in range(-(-n * splits // 64)):
+        for w in range(4):
+            slot, row0 = w % splits, (x * (4 // splits) + w // splits) * 16
+            if row0 >= n:
+                continue
+            keys = taken.setdefault(row0, np.zeros(m, np.int64))
+            for t0 in range(0, m, 64):
+                valid = min(64, m - t0)
+                for k0 in range(slot * 16, valid, splits * 16):
+                    keys[t0 + k0:t0 + min(k0 + 16, valid)] += 1
+    assert sorted(taken) == list(range(0, n, 16))
+    assert all((keys == 1).all() for keys in taken.values())
 
 
 def test_kernels_refuse_data_off_a_16_byte_boundary():

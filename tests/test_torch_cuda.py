@@ -24,10 +24,11 @@ pytestmark = pytest.mark.cuda
 # (B, N, M, d, dv): both instantiations, tiles that do not divide N or M, the
 # generator's up1 attention at serving batch 8, and the discriminator's
 # Attention3d at the training pyramid's smallest and largest scales (4 keys
-# against a 64-row tile; 256 queries in 4 splits of N)
+# against a 64-row tile; 256 queries in 4 splits of N, K2's keys split 4
+# ways), and a shape where K2 splits 3 chunks of keys 2 ways
 SHAPES = [(2, 64, 16, 4, 16), (2, 90, 22, 4, 16), (1, 48, 12, 16, 64),
           (2, 45, 15, 16, 64), (3, 1000, 250, 4, 16), (128, 1024, 256, 4, 16),
-          (40, 16, 4, 16, 64), (5, 256, 64, 16, 64)]
+          (40, 16, 4, 16, 64), (5, 256, 64, 16, 64), (2, 100, 40, 16, 64)]
 TRAIN_SHAPE = (40, 1024, 256, 4, 16)
 
 
@@ -116,6 +117,18 @@ def test_dkv_repeats_bit_for_bit(dtype):
     again = attention_bwd_dkv(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [TRAIN_SHAPE, (5, 256, 64, 16, 64)])
+def test_dq_repeats_bit_for_bit(shape, dtype):
+    # the second shape splits each query tile's keys across 4 warps, whose
+    # partial sums are added in a fixed order
+    args = _bwd_inputs(shape, dtype)
+    first = attention_bwd_dq(*args)
+    again = attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:4])

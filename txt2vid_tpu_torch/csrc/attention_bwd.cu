@@ -15,22 +15,40 @@
 // What bounds them: every (query, key) pair costs K2 2d + dv and K3 2d + 2dv
 // multiply-adds and one exponential, against d + dv values per row of
 // traffic, so both are bound by operations. At the generator's training
-// shape (B, N, M, d, dv) = (40, 1024, 256, 4, 16) K3's four products are
-// 0.84 GFLOP, three TF32 passes of which take 5.1 us at the tensor cores'
-// 495 TFLOP/s, and its 10.5 M exponentials 2.5 us at 16 per SM per clock.
+// shape (B, N, M, d, dv) = (40, 1024, 256, 4, 16) K2's three products are
+// 0.50 GFLOP and K3's four 0.84 GFLOP, three TF32 passes of which take 3.1
+// and 5.1 us at the tensor cores' 495 TFLOP/s, and each kernel's 10.5 M
+// exponentials 2.5 us at 16 per SM per clock.
 //
-// K2: scalar float32 on the CUDA cores. One query row per thread; its d
-// query values, dv output-gradient values, lse, delta and the d accumulators
-// live in registers; tiles of phi and g are staged in shared memory and read
-// by a whole warp at one address (a broadcast, no bank conflicts). Long dot
-// products use four partial sums, so they are not one chain of dependent FMAs.
-//
-// K3: the four products on the tensor cores through mma.sync, float32 as
+// Both run their products on the tensor cores through mma.sync, float32 as
 // three TF32 passes and bfloat16 as one pass (fragments and copies in
 // tc_mma.cuh; mma.sync rather than wgmma for the reasons given in
-// attention_fwd.cu). A block is 4 warps and 64 keys; a warp owns 16 keys,
-// holding their phi and g fragments in registers and the dphi and dg
-// accumulators in MMA fragments. Tiles of 64 query rows of theta, do, lse
+// attention_fwd.cu).
+//
+// K2: a block is 4 warps; a warp owns 16 query rows, holding their theta
+// fragments (A of S = theta phi^T), do fragments (A of dP = do g^T), lse log2 e
+// and delta in registers for the whole key loop, as K1 does. Tiles of 64 keys
+// of phi and g stream through a two-stage cp.async ring in shared memory; one
+// staged copy of phi is the B operand of S and, in the permuted K order of
+// from_acc, of dtheta += dS phi; g's tile is read as g^T. For each 16 keys,
+// in registers:
+//   S  = theta phi^T                      P = exp2(S log2 e - lse log2 e)
+//   dP = do g^T                           dS = P * (dP - delta)
+//   dtheta += dS phi
+// dS feeds its product as the A operand straight from the accumulators
+// (bf16: rounded to bf16 first, as the TPU kernel casts ds). d = 4 is
+// zero-padded to the MMA depth while fragments are built; keys past M get
+// p = 0; rows past N are computed on zeros and not stored. At the
+// discriminator's shapes B * ceil(N / 64) is 10-40 blocks, so the wrapper
+// lets `splits` (1, 2 or 4) warps of a block share one 16-row query tile,
+// warp slot s taking every splits-th 16-key chunk of each staged tile from
+// chunk s on. The slots' dtheta partials are added through shared memory in
+// slot order: no atomics, so results repeat bit for bit. At the generator's
+// shape splits is 1 and each warp owns its own rows, K1's layout.
+//
+// K3: a block is 4 warps and 64 keys; a warp owns 16 keys, holding their phi
+// and g fragments in registers and the dphi and dg accumulators in MMA
+// fragments. Tiles of 64 query rows of theta, do, lse
 // and delta stream through a two-stage cp.async ring in shared memory; rows
 // past N are zero-filled, which makes their terms exactly zero. For each 16
 // queries of a tile, in registers:
@@ -52,72 +70,175 @@ namespace {
 
 using namespace t2v;
 
-constexpr int kRows = 128;       // K2: query rows per block, one per thread
-constexpr int kTileM = 64;       // K2: key rows of phi/g staged per step
+constexpr int kDqWarps = 4;
+constexpr int kDqThreads = 32 * kDqWarps;
+constexpr int kTileM = 64;       // K2: keys of phi and g per stage
+constexpr int kChunkM = 16;      // K2: keys per pass through the products
+// K2's (4, 16) instantiation is held to 5 blocks per SM, as K1's, so the
+// training shape's 640 blocks run in one wave of 660 slots on 132 SMs
+constexpr int kDqMinBlocksD4 = 5;
 constexpr int kDkvWarps = 4;
 constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr int kKeys = 16 * kDkvWarps;  // K3: key rows per block, 16 per warp
 constexpr int kTileN = 64;       // K3: query rows of theta/do/lse/delta per stage
 constexpr int kChunkN = 16;      // K3: query rows per pass through the products
 
-// sum over k < K of a[k] * b[k], in four independent partial sums
-template <int K>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k % 4] = fmaf(a[k], b[k], acc[k % 4]);
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
-}
-
+// Warp w of a block is slot w % splits of query tile w / splits; the block
+// holds kDqWarps / splits tiles of 16 rows.
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kDqThreads, D == 4 ? kDqMinBlocksD4 : 1)
 attention_bwd_dq_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
                         const T* __restrict__ g, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dtheta, int n, int m) {
-  __shared__ __align__(16) float s_phi[kTileM][D];
-  __shared__ __align__(16) float s_g[kTileM][DV];
+                        T* __restrict__ dtheta, int n, int m, int splits) {
+  using Tr = Mma<T>;
+  constexpr int SD = row_stride<T, D>();
+  constexpr int SV = row_stride<T, DV>();
+  constexpr int KD = (D + Tr::K - 1) / Tr::K;  // MMA steps over d, zero-padded
+  constexpr int KV = DV / Tr::K;               // MMA steps over dv
+  constexpr int KC = kChunkM / Tr::K;          // MMA steps over a chunk's keys
+  constexpr int ND = (D + 7) / 8;              // dtheta accumulator tiles
+  constexpr int NC = kChunkM / 8;              // logit tiles per chunk
+  static_assert(DV % Tr::K == 0 && kChunkM % Tr::K == 0 && kTileM % kChunkM == 0,
+                "tile shapes");
+  __shared__ __align__(16) T s_phi[2][kTileM * SD];
+  __shared__ __align__(16) T s_g[2][kTileM * SV];
+  static_assert(sizeof(s_g) >= kDqThreads * ND * 4 * sizeof(float),
+                "the slots' partial sums are added in s_g");
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r = lane / 4, c = lane % 4;
+  const int slot = warp % splits;
   const int b = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool live = row < n;
-  const size_t r = (size_t)b * n + (live ? row : 0);
-
-  float q[D], dq[D], dov[DV];
-#pragma unroll
-  for (int e = 0; e < D; ++e) {
-    q[e] = live ? to_f32(theta[r * D + e]) : 0.f;
-    dq[e] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < DV; ++j) dov[j] = live ? to_f32(dout[r * DV + j]) : 0.f;
-  const float lse2 = live ? lse[r] * kLog2e : 0.f;
-  const float dl = live ? delta[r] : 0.f;
-
+  const int row0 = (blockIdx.x * (kDqWarps / splits) + warp / splits) * 16;
+  const T* theta_b = theta + (size_t)b * n * D;
+  const T* do_b = dout + (size_t)b * n * DV;
   const T* phi_b = phi + (size_t)b * m * D;
   const T* g_b = g + (size_t)b * m * DV;
-  for (int m0 = 0; m0 < m; m0 += kTileM) {
-    const int valid = min(kTileM, m - m0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < valid * D; i += kRows)
-      (&s_phi[0][0])[i] = to_f32(phi_b[(size_t)m0 * D + i]);
-    for (int i = threadIdx.x; i < valid * DV; i += kRows)
-      (&s_g[0][0])[i] = to_f32(g_b[(size_t)m0 * DV + i]);
-    __syncthreads();
 
-#pragma unroll 2
-    for (int k = 0; k < valid; ++k) {
-      const float p = exp2f(fmaf(dot<D>(q, s_phi[k]), kLog2e, -lse2));
-      const float ds = p * (dot<DV>(dov, s_g[k]) - dl);
+  typename Tr::A qa[KD], da[KV];
 #pragma unroll
-      for (int e = 0; e < D; ++e) dq[e] = fmaf(ds, s_phi[k][e], dq[e]);
-    }
+  for (int ks = 0; ks < KD; ++ks)
+    qa[ks] = Tr::load_a([&](int i, int k) {
+      return row0 + i < n && k < D ? to_f32(theta_b[(size_t)(row0 + i) * D + k]) : 0.f;
+    }, ks * Tr::K, r, c);
+#pragma unroll
+  for (int ks = 0; ks < KV; ++ks)
+    da[ks] = Tr::load_a([&](int i, int j) {
+      return row0 + i < n ? to_f32(do_b[(size_t)(row0 + i) * DV + j]) : 0.f;
+    }, ks * Tr::K, r, c);
+  // rows r and r + 8 of the warp's 16; a row past N (zeros, lse and delta 0)
+  // gets p = 1 against dP = 0 and delta = 0, so dS = 0
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    lse2[i] = row < n ? lse[(size_t)b * n + row] * kLog2e : 0.f;
+    dl[i] = row < n ? delta[(size_t)b * n + row] : 0.f;
   }
 
-  if (!live) return;
-  T* dst = dtheta + r * D;
+  // accumulator: rows r, r + 8, columns 8v + 2c, 8v + 2c + 1
+  float acc[ND][4] = {};
+
+  const int tiles = (m + kTileM - 1) / kTileM;
+  auto fetch = [&](int tile) {
+    const int valid = min(kTileM, m - tile * kTileM);
+    copy_rows<T, D, SD, kTileM, kDqThreads>(s_phi[tile % 2], phi_b + (size_t)tile * kTileM * D,
+                                            valid);
+    copy_rows<T, DV, SV, kTileM, kDqThreads>(s_g[tile % 2], g_b + (size_t)tile * kTileM * DV,
+                                             valid);
+    cp_async_commit();
+  };
+  fetch(0);
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) {
+      fetch(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int valid = min(kTileM, m - tile * kTileM);
+
+    // two chunks in flight: their products are independent but for acc
+#pragma unroll 2
+    for (int k0 = slot * kChunkM; row0 < n && k0 < valid; k0 += splits * kChunkM) {
+      const T* sp = s_phi[tile % 2] + k0 * SD;
+      const T* sg = s_g[tile % 2] + k0 * SV;
+      // S = theta phi^T, then P; keys past M (zero-filled) get p = 0
+      float p[NC][4];
 #pragma unroll
-  for (int e = 0; e < D; ++e) store(dst + e, dq[e]);
+      for (int j = 0; j < NC; ++j) {
+        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KD; ++ks)
+          Tr::mma(p[j], qa[ks], Tr::load_b([&](int k, int key) {
+            return k < D ? to_f32(sp[key * SD + k]) : 0.f;
+          }, ks * Tr::K, 8 * j, r, c));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = k0 + 8 * j + 2 * c + (e & 1) < valid;
+          p[j][e] = live ? exp2_approx(fmaf(p[j][e], kLog2e, -lse2[e / 2])) : 0.f;
+        }
+      }
+      // dS = P * (do g^T - delta), delta by row
+      float ds[NC][4];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KV; ++ks)
+          Tr::mma(ds[j], da[ks], Tr::load_b([&](int col, int key) {
+            return to_f32(sg[key * SV + col]);
+          }, ks * Tr::K, 8 * j, r, c));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dl[e / 2]);
+      }
+      // dtheta += dS phi
+#pragma unroll
+      for (int ks = 0; ks < KC; ++ks) {
+        const typename Tr::A a = Tr::from_acc(ds, ks);
+#pragma unroll
+        for (int v = 0; v < ND; ++v)
+          Tr::mma(acc[v], a, Tr::load_b_perm([&](int key, int k) {
+            return k < D ? to_f32(sp[key * SD + k]) : 0.f;
+          }, ks * Tr::K, 8 * v, r, c));
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  if (splits > 1) {  // slot 0 adds the other slots' partials, in slot order
+    // part[warp][v][e][lane]: the stages are free now
+    float* part = reinterpret_cast<float*>(&s_g[0][0]);
+    auto at = [&](int w, int v, int e) { return ((w * ND + v) * 4 + e) * 32 + lane; };
+    if (slot != 0) {
+#pragma unroll
+      for (int v = 0; v < ND; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[at(warp, v, e)] = acc[v][e];
+    }
+    __syncthreads();
+    if (slot != 0) return;
+    for (int s = 1; s < splits; ++s)
+#pragma unroll
+      for (int v = 0; v < ND; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[v][e] += part[at(warp + s, v, e)];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r + 8 * i;
+    if (row >= n) continue;
+    T* dst = dtheta + ((size_t)b * n + row) * D;
+#pragma unroll
+    for (int v = 0; v < ND; ++v)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * v + 2 * c + e;
+        if (col < D) store(dst + col, acc[v][2 * i + e]);
+      }
+  }
 }
 
 // partial == nullptr: write dphi and dg directly. Otherwise write f32 partial
@@ -303,13 +424,15 @@ struct Args {
 };
 
 template <typename T, int D, int DV>
-cudaError_t launch_dq(const Args& a, void* dtheta) {
-  const dim3 grid((a.n + kRows - 1) / kRows, a.b);
-  attention_bwd_dq_kernel<T, D, DV><<<grid, kRows, 0, a.stream>>>(
+cudaError_t launch_dq(const Args& a, void* dtheta, int splits) {
+  if (splits != 1 && splits != 2 && splits != 4) return cudaErrorInvalidValue;
+  const int rows = 16 * kDqWarps / splits;  // query rows per block
+  const dim3 grid((a.n + rows - 1) / rows, a.b);
+  attention_bwd_dq_kernel<T, D, DV><<<grid, kDqThreads, 0, a.stream>>>(
       static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
       static_cast<const T*>(a.g), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dtheta), a.n, a.m);
+      static_cast<T*>(dtheta), a.n, a.m, splits);
   return cudaGetLastError();
 }
 
@@ -340,9 +463,9 @@ cudaError_t launch_dkv(const Args& a, void* dphi, void* dg, void* scratch, int s
 }
 
 template <typename T>
-cudaError_t dispatch_dq(const Args& a, int d, int dv, void* dtheta) {
-  if (d == 4 && dv == 16) return launch_dq<T, 4, 16>(a, dtheta);
-  if (d == 16 && dv == 64) return launch_dq<T, 16, 64>(a, dtheta);
+cudaError_t dispatch_dq(const Args& a, int d, int dv, void* dtheta, int splits) {
+  if (d == 4 && dv == 16) return launch_dq<T, 4, 16>(a, dtheta, splits);
+  if (d == 16 && dv == 64) return launch_dq<T, 16, 64>(a, dtheta, splits);
   return cudaErrorInvalidValue;
 }
 
@@ -353,6 +476,17 @@ cudaError_t dispatch_dkv(const Args& a, int d, int dv, void* dphi, void* dg,
     return launch_dkv<T, 4, 16>(a, dphi, dg, scratch, splits, rows_per_split);
   if (d == 16 && dv == 64)
     return launch_dkv<T, 16, 64>(a, dphi, dg, scratch, splits, rows_per_split);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t occupancy_dq(int d, int dv, int* blocks_per_sm) {
+  if (d == 4 && dv == 16)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_bwd_dq_kernel<T, 4, 16>, kDqThreads, 0);
+  if (d == 16 && dv == 64)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_bwd_dq_kernel<T, 16, 64>, kDqThreads, 0);
   return cudaErrorInvalidValue;
 }
 
@@ -372,15 +506,18 @@ cudaError_t occupancy_dkv(int d, int dv, int* blocks_per_sm) {
 // dtype: 0 = float32, 1 = bfloat16 (theta, phi, g, do and the outputs); lse
 // and delta are float32. Each returns the cudaError_t of its launches (0 =
 // cudaSuccess); launches are asynchronous on `stream`.
+//
+// splits (1, 2 or 4): warps of a block that share one 16-row query tile and
+// cut M among them.
 extern "C" int t2v_attention_bwd_dq(const void* theta, const void* phi, const void* g,
                                     const void* dout, const void* lse, const void* delta,
-                                    void* dtheta, int b, int n, int m, int d, int dv,
-                                    int dtype, int device, void* stream) {
+                                    void* dtheta, int splits, int b, int n, int m, int d,
+                                    int dv, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{theta, phi, g, dout, lse, delta, b, n, m, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) err = dispatch_dq<float>(a, d, dv, dtheta);
-  else if (dtype == 1) err = dispatch_dq<__nv_bfloat16>(a, d, dv, dtheta);
+  if (dtype == 0) err = dispatch_dq<float>(a, d, dv, dtheta, splits);
+  else if (dtype == 1) err = dispatch_dq<__nv_bfloat16>(a, d, dv, dtheta, splits);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
@@ -404,8 +541,19 @@ extern "C" int t2v_attention_bwd_dkv(const void* theta, const void* phi, const v
   return static_cast<int>(err);
 }
 
-// K3's occupancy: out[0] = blocks one SM holds at once, out[1] = threads per
-// block.
+// K2's and K3's occupancy: out[0] = blocks one SM holds at once, out[1] =
+// threads per block.
+extern "C" int t2v_attention_bwd_dq_occupancy(int d, int dv, int dtype, int device,
+                                              int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 0) err = occupancy_dq<float>(d, dv, out);
+  else if (dtype == 1) err = occupancy_dq<__nv_bfloat16>(d, dv, out);
+  else err = cudaErrorInvalidValue;
+  out[1] = kDqThreads;
+  return static_cast<int>(err);
+}
+
 extern "C" int t2v_attention_bwd_dkv_occupancy(int d, int dv, int dtype, int device,
                                                int* out) {
   cudaError_t err = cudaSetDevice(device);

@@ -17,10 +17,9 @@ What bounds them on an H100: at the generator's training shape (B, N, M, d, dv)
 = (40, 1024, 256, 4, 16) K1 does 2*B*N*M*(d + dv) = 0.42 GFLOP, K2
 2*B*N*M*(2d + dv) = 0.50 GFLOP and K3 2*B*N*M*(2d + 2dv) = 0.84 GFLOP and 10.5 M
 exponentials each, against about 5 MB of traffic, so operations bound them.
-K1 and K3 run their products on the tensor cores (mma.sync; float32 as three
-TF32 passes, d zero-padded to the MMA depth of 8, or 16 in bfloat16); K2 is
-scalar float32 on the CUDA cores, one query row per thread (see the sources'
-notes).
+All three run their products on the tensor cores (mma.sync; float32 as three
+TF32 passes, d zero-padded to the MMA depth of 8, or 16 in bfloat16; see the
+sources' notes).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it computes its plain version (`*_reference`)
@@ -38,11 +37,16 @@ from txt2vid_tpu_torch.ops import _build
 # at 32 channels and the discriminator's Attention3d at 128 channels
 SUPPORTED_DV = {4: 16, 16: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' tiles: K1 64 query rows per block; K3 64 keys per block and
+# the kernels' tiles: K1 64 query rows per block; K2 4 warps of 16 query rows
+# and 16-key chunks of 64-key stages, 1, 2 or 4 warps sharing a query tile when
+# B * ceil(N / 64) blocks would leave SMs idle; K3 64 keys per block and
 # stages of 64 query rows. K3 splits N across blocks when B * ceil(M / 64)
 # blocks would not put _DKV_BLOCKS_PER_SM on every SM; each split handles a
 # multiple of the 64-row stage
 _FWD_ROWS_PER_BLOCK = 64
+_DQ_WARPS = 4
+_DQ_TILE_M = 64
+_DQ_CHUNK_M = 16
 _DKV_KEYS_PER_BLOCK = 64
 _DKV_TILE_N = 64
 _DKV_BLOCKS_PER_SM = 4
@@ -74,9 +78,12 @@ def _dlogits(p, g, do, delta):
 
 
 def attention_bwd_dq_reference(theta, phi, g, do, lse, delta):
-    """Plain version of K2: dtheta = ds @ phi, cast to theta's dtype."""
+    """Plain version of K2: dtheta = ds @ phi, cast to theta's dtype; ds is
+    cast to phi's dtype before the product, as the TPU kernel does
+    (pallas_attention.py:163)."""
     ds = _dlogits(_probs(theta, phi, lse), g, do, delta)
-    return torch.einsum("bnm,bmd->bnd", ds, phi.float()).to(theta.dtype)
+    return torch.einsum("bnm,bmd->bnd", ds.to(phi.dtype).float(),
+                        phi.float()).to(theta.dtype)
 
 
 def attention_bwd_dkv_reference(theta, phi, g, do, lse, delta):
@@ -163,17 +170,18 @@ def _stream(t):
 def _kernel(name):
     """A C entry point of the kernel libraries, built and typed on first use:
       t2v_attention_fwd(theta, phi, g, o, lse, b, n, m, d, dv, dtype, device, stream)
-      t2v_attention_bwd_dq(theta, phi, g, do, lse, delta, dtheta,
+      t2v_attention_bwd_dq(theta, phi, g, do, lse, delta, dtheta, splits,
                            b, n, m, d, dv, dtype, device, stream)
       t2v_attention_bwd_dkv(theta, phi, g, do, lse, delta, dphi, dg, scratch,
                             splits, rows_per_split, b, n, m, d, dv, dtype, device, stream)
-      t2v_attention_fwd_occupancy / t2v_attention_bwd_dkv_occupancy(d, dv, dtype,
-                            device, out): out = (blocks per SM, threads per block)
+      t2v_attention_{fwd,bwd_dq,bwd_dkv}_occupancy(d, dv, dtype, device, out):
+                            out = (blocks per SM, threads per block)
     Pointers and the stream are c_void_p ("p"): untyped, ctypes would pass 32
     bits; ints are c_int ("i")."""
     lib, sig = {"t2v_attention_fwd": ("attention_fwd", "ppppp" "iiiiiii" "p"),
                 "t2v_attention_fwd_occupancy": ("attention_fwd", "iiii" "p"),
-                "t2v_attention_bwd_dq": ("attention_bwd", "ppppppp" "iiiiiii" "p"),
+                "t2v_attention_bwd_dq": ("attention_bwd", "ppppppp" "iiiiiiii" "p"),
+                "t2v_attention_bwd_dq_occupancy": ("attention_bwd", "iiii" "p"),
                 "t2v_attention_bwd_dkv": ("attention_bwd", "ppppppppp" "iiiiiiiii" "p"),
                 "t2v_attention_bwd_dkv_occupancy": ("attention_bwd", "iiii" "p")}[name]
     fn = getattr(_build.load(lib), name)
@@ -230,6 +238,7 @@ def attention_bwd_dq(theta, phi, g, do, lse, delta):
     err = _kernel("t2v_attention_bwd_dq")(
         theta.data_ptr(), phi.data_ptr(), g.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dtheta.data_ptr(),
+        dq_splits(b, n, m, sm_count(theta.device.index)),
         b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
     _raise_on(err, "attention_bwd_dq")
     attention_bwd_dq.launches += 1
@@ -240,6 +249,19 @@ def attention_bwd_dq(theta, phi, g, do, lse, delta):
 def sm_count(device_index):
     """Streaming multiprocessors of the CUDA device."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def dq_splits(b, n, m, sms):
+    """How many of a K2 block's 4 warps share one 16-row query tile (1, 2 or
+    4): the fewest that give `sms` SMs a block each, and no more than M has
+    16-key chunks. Slot s of `splits` takes chunks s, s + splits, ... of each
+    64-key stage; a block holds 4 / splits query tiles."""
+    chunks = -(-min(m, _DQ_TILE_M) // _DQ_CHUNK_M)
+    splits = 1
+    while (2 * splits <= min(_DQ_WARPS, chunks)
+           and b * -(-n * splits // (16 * _DQ_WARPS)) < sms):
+        splits *= 2
+    return splits
 
 
 def dkv_splits(b, n, m, sms):
@@ -286,10 +308,11 @@ def fused_attention_bwd(theta, phi, g, o, lse, do):
 
 
 def occupancy(kernel, shape, dtype=torch.float32, device_index=0):
-    """How K1 ("attention_fwd") or K3 ("attention_bwd_dkv") fills the card at
-    (B, N, M, d, dv): blocks per SM that registers and shared memory allow,
-    warps per block, blocks in the grid, and the resident warps per SM, the
-    fewer of what the SM holds and what the grid supplies."""
+    """How K1 ("attention_fwd"), K2 ("attention_bwd_dq") or K3
+    ("attention_bwd_dkv") fills the card at (B, N, M, d, dv): blocks per SM
+    that registers and shared memory allow, warps per block, blocks in the
+    grid, and the resident warps per SM, the fewer of what the SM holds and
+    what the grid supplies."""
     b, n, m, d, dv = shape
     out = (ctypes.c_int * 2)()
     err = _kernel(f"t2v_{kernel}_occupancy")(d, dv, _DTYPE_CODE[dtype], device_index, out)
@@ -297,6 +320,8 @@ def occupancy(kernel, shape, dtype=torch.float32, device_index=0):
     sms = sm_count(device_index)
     if kernel == "attention_fwd":
         grid = b * -(-n // _FWD_ROWS_PER_BLOCK)
+    elif kernel == "attention_bwd_dq":
+        grid = b * -(-n * dq_splits(b, n, m, sms) // (16 * _DQ_WARPS))
     else:
         grid = b * -(-m // _DKV_KEYS_PER_BLOCK) * dkv_splits(b, n, m, sms)[0]
     warps = out[1] // 32
