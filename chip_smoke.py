@@ -34,6 +34,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with the launch counts zeroed just before, each launching K1 17 times and
    K2 and K3 13 times, with finite losses; every G and D parameter with a
    nonzero gradient must have moved, the attention blocks' among them.
+6. cli: the training CLI as users run it. 80 synthetic clips (16x64x64x3)
+   and a vocabulary written by the port's own generator to a directory under
+   build/ (removed at the end), then `txt2vid_tpu_torch.train.gan.main`
+   in-process at scripts/run_tganv2_cond.sh's configuration (the flagship G
+   and D at full width, Seq2Seq, frame sizes 8/16/32/64 with the subsample
+   pyramid, RSGAN, Adam 2e-4 (0.5, 0.999), batch 40) plus --gp_lambda 0.5
+   --gp_every 2 --clip_grad 100 --g_ema 0.999, for 3 epochs of 2 batches
+   (6 steps, the GP on steps 0, 2 and 4) with --save_model_period 4
+   --log_period 1 --save_example_period 4 --sample_batch_size 8. Every step
+   must have finite losses and norms and launch K1 17 and K2, K3 13 times,
+   GP steps included (the GP's double backward takes the plain attention).
+   The checkpoint of iteration 6 must read back bit for bit against the
+   state in memory (parameters, BatchNorm statistics, both optimizers'
+   moments and counts) and its `.ema` sibling against the average in
+   memory; `--resume --epochs 1` must continue at iteration 7 and end at 8.
+   From the resumed state (a GP step), every attention gamma set to 1, one
+   step with the kernels and one under no_kernel() must agree: losses 1e-4
+   relative, Adam first moments 1e-3 of the leaf scale, or, where the plain
+   float32 step itself strays from a float64 step of the same state (a
+   trained state's attention projections), the kernels' step no further
+   from the float64 step than 3x the plain one. Then 8 steps of that TrainStep alone (GP and
+   plain alternating). Prints each step's ms (host clock, synchronized; the
+   medians of GP and plain steps from the 8 alone), the peak memory, the
+   checkpoint's bytes and the seconds of a synchronous save, and the EMA
+   update's ms.
 
 With --baseline DIR (another checkout's root, e.g. the parent commit's
 `git archive` unpacked under build/), a phase compare after the kernels phase
@@ -48,19 +73,26 @@ import argparse
 import importlib.util
 import json
 import math
+import pickle
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from txt2vid_tpu_torch import bench
-from txt2vid_tpu_torch.data import build_vocab
-from txt2vid_tpu_torch.data.synthetic import moving_digit_captions
+from txt2vid_tpu_torch.convert import jax_state_to_torch, torch_state_to_jax
+from txt2vid_tpu_torch.data import build_vocab, load_pickle
+from txt2vid_tpu_torch.data.synthetic import generate_examples, moving_digit_captions
+from txt2vid_tpu_torch.gan import ema as ema_mod
+from txt2vid_tpu_torch.gan.train_step import TrainStep
+from txt2vid_tpu_torch.models import layers as layers_mod
 from txt2vid_tpu_torch.models.layers import Attention, Attention3d
 from txt2vid_tpu_torch.ops import _build
 from txt2vid_tpu_torch.ops.attention import no_kernel
@@ -69,6 +101,8 @@ from txt2vid_tpu_torch.ops.fused_attention import (
     attention_bwd_dq_reference, attention_delta, fused_attention,
     fused_attention_reference, occupancy)
 from txt2vid_tpu_torch.serve import GeneratorService
+from txt2vid_tpu_torch.train import gan as train_gan
+from txt2vid_tpu_torch.utils import checkpoint
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth, float32 outside the tensor cores,
 # and TF32 on the tensor cores (dense)
@@ -633,6 +667,299 @@ def phase_train(seed):
     return totals
 
 
+CLI_CLIPS, CLI_EPOCHS, CLI_GP_EVERY = 80, 3, 2
+
+
+def cli_argv(root, seed, *extra):
+    """run_tganv2_cond.sh's flags with the regularization of r9_session.sh."""
+    data = json.dumps({"class": "txt2vid_tpu.data.my_dataset",
+                       "args": {"data": str(root / "videos"), "num_frames": 16}})
+    return ["--G", "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+            "--D", "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
+            "--sent", "txt2vid_tpu.models.txt.Seq2Seq", "--data", data,
+            "--anno", str(root / "sent.pickle"), "--vocab", str(root / "vocab.pickle"),
+            "--frame_sizes", "8", "16", "32", "64", "--subsample_input", "--num_channels", "3",
+            "--D_loss", "txt2vid_tpu.gan.losses.RSGANLoss", "--G_lr", "0.0002",
+            "--D_lr", "0.0002", "--G_beta2", "0.999", "--D_beta2", "0.999",
+            "--gp_lambda", "0.5", "--gp_every", str(CLI_GP_EVERY), "--clip_grad", "100",
+            "--g_ema", "0.999", "--batch_size", str(bench.BATCH), "--seed", str(seed),
+            "--save_model_period", "4", "--log_period", "1", "--save_example_period", "4",
+            "--sample_batch_size", "8", "--workers", "2", "--out", str(root / "out"),
+            "--out_samples", str(root / "out" / "samples"), *extra]
+
+
+class StepRecorder:
+    """Wraps TrainStep.__call__ while installed: per step its launches, its
+    metrics (fetched), whether it carried the GP, and its host-clock ms with
+    the device synchronized; keeps the last step object and batch."""
+
+    def __init__(self):
+        self.steps, self.step, self.batch = [], None, None
+        self._orig = TrainStep.__call__
+
+    def __enter__(self):
+        rec = self
+
+        def call(step, batch, draws=None):
+            it = step.step
+            gp = step.config.gp_lambda > 0 and it % step.config.gp_every == 0
+            torch.cuda.synchronize()
+            before = counts()
+            t0 = time.perf_counter()
+            out = rec._orig(step, batch, draws)
+            metrics = {k: float(v) for k, v in out.items()}
+            ms = 1e3 * (time.perf_counter() - t0)
+            launched = {k: v - before[k] for k, v in counts().items()}
+            rec.steps.append({"iteration": it, "gp": gp, "ms": ms,
+                              "metrics": metrics, "launches": launched})
+            rec.step, rec.batch = step, batch
+            return out
+
+        TrainStep.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        TrainStep.__call__ = self._orig
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}/{k}")
+        elif v is not None:
+            yield f"{prefix}/{k}", np.asarray(v)
+
+
+def same_tree(a, b, what):
+    fa, fb = dict(_flat(a)), dict(_flat(b))
+    check(fa.keys() == fb.keys(), f"{what}: the trees' leaves differ")
+    bad = [k for k in fa if fa[k].dtype != fb[k].dtype or not np.array_equal(fa[k], fb[k])]
+    check(not bad, f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    return len(fa)
+
+
+def phase_cli(seed):
+    """The training CLI at the flagship's width; returns its launch counts."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=build))
+    try:
+        return _phase_cli(root, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_cli(root, seed):
+    t0 = time.perf_counter()
+    sents = generate_examples(root / "videos", root / "sent.pickle", num_examples=CLI_CLIPS,
+                              frame_size=(64, 64), num_frames=16, seed=seed, num_channels=3)
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab([c for v in sents.values() for c in v]), f)
+    print(f"phase cli: {CLI_CLIPS} clips of 16x64x64x3 and a vocabulary of "
+          f"{len(load_pickle(root / 'vocab.pickle'))} words in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    made = []
+    init_ema = ema_mod.init_ema
+
+    def recording_init_ema(gen):
+        made.append(init_ema(gen))
+        return made[-1]
+
+    ema_mod.init_ema = recording_init_ema
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with StepRecorder() as rec:
+            train_gan.main(train_gan.build_parser().parse_args(
+                cli_argv(root, seed, "--epochs", str(CLI_EPOCHS))))
+    finally:
+        ema_mod.init_ema = init_ema
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    totals = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = CLI_EPOCHS * CLI_CLIPS // bench.BATCH
+    check(len(rec.steps) == n_steps, f"{len(rec.steps)} steps run, {n_steps} expected")
+    for r in rec.steps:
+        print(f"phase cli: step {r['iteration']} ({'GP' if r['gp'] else 'plain'}): "
+              f"{r['ms']:.2f} ms, {r['metrics']}, launches {r['launches']}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"cli step {r['iteration']}: non-finite {r['metrics']}")
+        check(r["launches"] == TRAIN_LAUNCHES, f"cli step {r['iteration']}: launches "
+              f"{r['launches']}, expected {TRAIN_LAUNCHES}")
+    check([r["gp"] for r in rec.steps] == [i % CLI_GP_EVERY == 0 for i in range(n_steps)],
+          "the GP did not run on the steps gp_every gives")
+    print(f"phase cli: {n_steps} steps with the trainer (sampling and checkpoints at "
+          f"iterations 4 and 6, the save of 4 overlapping steps 4-5) in {run_s:.2f} s; peak "
+          f"memory {peak} bytes ({peak / 2**30:.3f} GiB); launches {totals}")
+
+    out = root / "out"
+    latest = checkpoint.latest_checkpoint(out)
+    check(latest is not None and Path(latest).name.startswith(f"iter_{n_steps}_"),
+          f"the last checkpoint is {latest}")
+    step = rec.step
+    mem = checkpoint.to_host(torch_state_to_jax(step))
+    n_leaves = same_tree(mem, checkpoint.restore_state(mem, latest), "checkpoint")
+    check(len(made) == 1, f"{len(made)} EMA averages made")
+    ema_mem = checkpoint.to_host(ema_mod.ema_tree(made[0]))
+    same_tree(ema_mem, checkpoint.restore_state(ema_mem, ema_mod.ema_path(latest)), "EMA")
+    nbytes = Path(latest).stat().st_size
+    t0 = time.perf_counter()
+    checkpoint.save_state(torch_state_to_jax(step), root / "timed_save")
+    save_s = time.perf_counter() - t0
+    check((root / "timed_save").read_bytes() == Path(latest).read_bytes(),
+          "a second save of the same state wrote other bytes")
+    (root / "timed_save").unlink()
+    print(f"phase cli: {Path(latest).name} reads back bit for bit ({n_leaves} leaves, Adam "
+          f"counts {int(mem['opt_g_state']['0']['count'])}/"
+          f"{int(mem['opt_d_state']['0']['count'])}), and its .ema; {nbytes} bytes, a "
+          f"synchronous save {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s)")
+    samples = sorted(p.name for p in (out / "samples").iterdir())
+    check(any(n.startswith("fake_ema_samples_") for n in samples)
+          and "real_samples.png" in samples, f"sample grids missing: {samples}")
+
+    with StepRecorder() as resumed:
+        train_gan.main(train_gan.build_parser().parse_args(
+            cli_argv(root, seed, "--epochs", "1", "--resume")))
+    its = [r["iteration"] for r in resumed.steps]
+    check(its == [n_steps, n_steps + 1] and resumed.step.step == n_steps + 2,
+          f"--resume ran counters {its}, ended at {resumed.step.step}")
+    check(Path(checkpoint.latest_checkpoint(out)).name.startswith(f"iter_{n_steps + 2}_"),
+          f"the resumed run's last checkpoint is {checkpoint.latest_checkpoint(out)}")
+    print(f"phase cli: --resume --epochs 1 ran iterations {n_steps + 1}-{n_steps + 2} "
+          f"(launches {[r['launches'] for r in resumed.steps]})")
+
+    compare_kernel_and_plain_cli_step(resumed.step, resumed.batch)
+    time_cli_steps(resumed.step, resumed.batch)
+    gen = resumed.step.gan.gen
+    avg = ema_mod.init_ema(gen)
+    update = ema_mod.make_ema_update(0.999)
+    ema_ms = cuda_ms(lambda: update(avg, gen))
+    print(f"phase cli: EMA update of the generator's "
+          f"{sum(p.numel() for p in gen.parameters())} parameters {ema_ms:.4f} ms")
+    return totals
+
+
+def _attention64(theta, phi, g, use_kernel=True):
+    """The plain attention in the inputs' dtype (attention_core computes in
+    float32), for the float64 reference step."""
+    return torch.softmax(theta @ phi.transpose(1, 2), dim=-1) @ g
+
+
+def compare_kernel_and_plain_cli_step(step, batch):
+    """One GP step with clipping from one state, every attention gamma 1:
+    with the kernels, under no_kernel() (twice: the run-to-run spread of the
+    same code) and in float64 with the plain attention (the reference)."""
+    check(step.config.gp_lambda > 0 and step.step % step.config.gp_every == 0,
+          "the resumed state's next step carries no GP")
+    modules = {"G": step.gan.gen, "D": step.gan.discrims[0]}
+    with torch.no_grad():
+        for m in modules.values():
+            for a in m.modules():
+                if isinstance(a, (Attention, Attention3d)):
+                    a.gamma.fill_(1.0)
+    start = checkpoint.to_host(torch_state_to_jax(step))
+    draws = step.draw(batch["video"].shape[0], batch["video"].device)
+    opts = {"G": step.opt_g, "D": step.opt_d}
+    encoder = step.gan.cond_encoder
+
+    def run(mode):
+        jax_state_to_torch(start, step)
+        if mode == "kernel":
+            m = step(batch, draws)
+        elif mode == "float64":
+            for mod in (*modules.values(), encoder):
+                mod.double()
+            jax_state_to_torch(start, step)
+            b64 = dict(batch, video=batch["video"].double() / 127.5 - 1.0)
+            d64 = TrainStep.draw(step, batch["video"].shape[0], batch["video"].device)
+            d64.z = draws.z.double()
+            d64.alphas = [[a.double() for a in al] for al in draws.alphas]
+            d64.perms = draws.perms
+            orig = layers_mod.attention_core_auto
+            layers_mod.attention_core_auto = _attention64
+            try:
+                m = step(b64, d64)
+            finally:
+                layers_mod.attention_core_auto = orig
+        else:
+            with no_kernel():
+                m = step(batch, draws)
+        out = ({k: float(v) for k, v in m.items()},
+               {k: {n: opts[k].state[p]["exp_avg"].double().clone()
+                    for n, p in modules[k].named_parameters()} for k in modules})
+        if mode == "float64":
+            for mod in (*modules.values(), encoder):
+                mod.float()
+        return out
+
+    runs = {mode: run(mode) for mode in ("kernel", "plain", "plain again", "float64")}
+    jax_state_to_torch(start, step)
+    ref_m, ref = runs["plain"]
+
+    def worst(mom, against):
+        w, where = 0.0, None
+        for side in modules:
+            scales = leaf_scales(against[side])
+            top = max(scales.values())
+            for n, r in against[side].items():
+                err = float((r - mom[side][n]).abs().max()) / scales[n]
+                if err > w:
+                    w, where = err, (f"{side} {n}, its max|moment| "
+                                     f"{float(r.abs().max()) / top:.3g} of the phase's")
+        return w, where
+
+    loss_err = max(abs(runs["kernel"][0][k] - ref_m[k]) / abs(ref_m[k])
+                   for k in ("loss_d", "loss_g"))
+    kernel_vs_plain = worst(runs["kernel"][1], ref)
+    print(f"phase cli: kernels vs no_kernel(), one GP step with clipping from one state: "
+          f"{runs['kernel'][0]} vs {ref_m}; losses rel diff {loss_err:.3g} (tol 1e-4), Adam "
+          f"first moments max|diff| / leaf scale {kernel_vs_plain[0]:.3g} at "
+          f"{kernel_vs_plain[1]}")
+    f64 = runs["float64"][1]
+    vs64 = {}
+    for mode in ("kernel", "plain", "plain again"):
+        vs64[mode], where = worst(runs[mode][1], f64)
+        print(f"phase cli: {mode} vs the float64 step: Adam first moments max|diff| / leaf "
+              f"scale {vs64[mode]:.3g} at {where}")
+    w, where = worst(runs["plain again"][1], ref)
+    print(f"phase cli: no_kernel() run twice: max|diff| / leaf scale {w:.3g} at {where}")
+    # at a trained state the plain float32 step itself can sit ~1e-3 of a leaf
+    # scale from the float64 one (G's attention projections): there the
+    # kernels pass when they are no further from float64 than 3x plain float32
+    ok = kernel_vs_plain[0] <= 1e-3 or vs64["kernel"] <= 3 * vs64["plain"]
+    print(f"phase cli: tolerances: losses 1e-4 relative; Adam first moments 1e-3 of the "
+          f"leaf scale from no_kernel()'s, else no further from the float64 step than 3x "
+          f"no_kernel()'s ({vs64['kernel']:.3g} vs 3 x {vs64['plain']:.3g}): "
+          f"{'ok' if ok else 'DISAGREES'}")
+    check(loss_err <= 1e-4 and ok, "the CLI's GP step disagrees with no_kernel()")
+
+
+def time_cli_steps(step, batch, n=8):
+    """n steps of the CLI's TrainStep on one batch, each timed alone on the
+    host clock between device synchronizations (no checkpoint or sampling
+    beside them); returns the median ms of the GP and of the plain steps
+    after the first two."""
+    times = {True: [], False: []}
+    for i in range(n):
+        gp = step.step % step.config.gp_every == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch)["loss_d"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(math.isfinite(loss), f"timed step {i}: loss_d {loss}")
+        if i >= 2:
+            times[gp].append(ms)
+    gp_ms, plain_ms = statistics.median(times[True]), statistics.median(times[False])
+    print(f"phase cli: {n} steps alone, after 2 of warm-up: GP steps {times[True]} ms, plain "
+          f"steps {times[False]} ms; medians {gp_ms:.2f} / {plain_ms:.2f} ms, GP overhead "
+          f"{gp_ms / plain_ms - 1:.3f}")
+    return gp_ms, plain_ms
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -642,20 +969,30 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU")
 
-    name, smi = phase_device()
-    tc = phase_build()
-    records = [phase_attention(args.seed), *phase_attention_bwd(args.seed)]
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    name, smi = timed("device", phase_device)
+    tc = timed("build", phase_build)
+    records = timed("kernels", lambda: [phase_attention(args.seed),
+                                        *phase_attention_bwd(args.seed)])
     if args.baseline:
-        phase_compare(args.baseline, args.seed)
+        timed("compare", phase_compare, args.baseline, args.seed)
     for r in records:
         r["tc_instructions"] = tc[r["name"]]
-    serve_launches, _ = phase_serve(args.seed)
-    train = phase_train(args.seed)
+    serve_launches, _ = timed("serve", phase_serve, args.seed)
+    train = timed("train", phase_train, args.seed)
+    cli = timed("cli", phase_cli, args.seed)
     records[0]["launches"] = serve_launches
     for kernel, r in (("attention_fwd", records[0]["train_shape"]),
                       *((r["name"], r) for r in records[1:])):
         r["launches"] = train[kernel]
         r["launches_per_step"] = TRAIN_LAUNCHES[kernel]
+    for r in records:
+        r["cli_launches"] = cli[r["name"]]
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

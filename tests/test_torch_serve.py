@@ -194,14 +194,19 @@ class TestStandsAlone:
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'txt2vid_tpu_torch.')]\n"
             "for n in names: importlib.import_module(n)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'txt2vid_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'PIL', 'txt2vid_tpu')]\n"
             "assert not bad, bad\n"
             "print(' '.join(names))\n")
         res = _run_python(code)
         assert res.returncode == 0, res.stderr
         names = set(res.stdout.split())
-        assert len(names) >= 22
-        # the training slice's modules, the port's bench included
+        assert len(names) >= 37
+        # the training slice's modules, the port's bench included, and the
+        # training CLI's: trainer, EMA, checkpoints and their codec, config,
+        # setup, data
         assert {f"txt2vid_tpu_torch.{m}" for m in (
             "bench", "gan.train_step", "gan.losses", "gan.cond_gan", "models.resnet3d",
-            "ops.subsample", "utils.misc")} <= names
+            "ops.subsample", "utils.misc", "gan.trainer", "gan.ema", "train.gan",
+            "train.setup", "config", "utils.checkpoint", "utils.msgpack", "utils.writer",
+            "utils.logging", "utils.metrics", "utils.stopwatch", "data.synthetic",
+            "data.__main__")} <= names

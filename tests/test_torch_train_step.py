@@ -346,13 +346,20 @@ def test_step_went_through_the_attention_function(steps):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("gp_lambda", 10.0), ("gp_every", 4), ("gp_quarantine", True), ("clip_grad", 1.0),
     ("end2end", True), ("compute_dtype", torch.bfloat16), ("img_model", True),
-    ("discrim_steps", 2)])
+    ("gen_steps", 2)])
 def test_unported_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field if field != "discrim_steps"
-                       else "discrim_steps"):
+    with pytest.raises(NotImplementedError, match=field):
         check_config(TrainConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("gp_lambda", 10.0), ("gp_every", 4), ("gp_quarantine", True), ("clip_grad", 1.0),
+    ("discrim_steps", 2)])
+def test_ported_fields_accepted(field, value):
+    """The regularization fields the training CLI's slice ported
+    (tests/test_torch_gp_step.py holds them to the JAX step)."""
+    check_config(TrainConfig(**{field: value}))
 
 
 def _tiny_port_step(shared, seed=0):

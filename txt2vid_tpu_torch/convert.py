@@ -1,7 +1,11 @@
-"""Carry JAX-trained weights into the port: flax variable trees -> state dicts.
+"""Carry weights and train states between the JAX package and the port:
+flax variable trees <-> state dicts, and the whole GanTrainState tree <->
+the port's modules and optimizers.
 
 The caller hands over the trees as nested dicts of numpy arrays (after
-`jax.device_get`); nothing here imports JAX. Mappings:
+`jax.device_get`, or as utils/checkpoint.py reads them); nothing here imports
+JAX. The torch_to_jax_* functions are the inverses, with tensor leaves in the
+JAX layout (transposed views). Mappings:
 
 - Dense kernel (in, out) -> weight (out, in); Conv kernel (kh, kw, I, O) ->
   (O, I, kh, kw), 3-D (kd, kh, kw, I, O) -> (O, I, kd, kh, kw). The
@@ -23,7 +27,16 @@ The caller hands over the trees as nested dicts of numpy arrays (after
   `attn/theta|phi|g|o` and `attn/gamma`, `fc_uncond`, `fc`, `cond_proj`.
 
 Any key that is not mapped raises, except the decoder's `to_vocab`, which is on
-neither the serving nor the training path.
+neither the serving nor the training path: jax_to_torch_encoder skips it, and
+the train-state conversions carry it in the encoder's two `to_vocab` buffers.
+
+The train state (train_step.py:113-120, as flax serializes it): `step`,
+`g_vars` {params, batch_stats}, `d_vars` {"0": {params}, ...}, `txt_vars`
+{params} or None, `m_vars` None, and each optimizer's optax.adam state
+{"0": {count, mu, nu}, "1": {}} (ScaleByAdamState, EmptyState), with `mu` and
+`nu` trees {"g": params} and {"d": {"0": params, ...}}. They map onto torch
+Adam's `exp_avg` / `exp_avg_sq` with the parameters' transposes and `count`
+onto `step`. BatchNorm's `num_batches_tracked` has no counterpart.
 """
 
 import re
@@ -96,6 +109,99 @@ def jax_to_torch_generator(params, batch_stats=None) -> dict:
     return sd
 
 
+def _nest(flat: dict) -> dict:
+    """{"a/b/c": leaf} -> nested dicts with keys sorted at every level, the
+    order a tree has after any jax.tree_util map."""
+    out = {}
+    for path in sorted(flat):
+        node = out
+        *mods, leaf = path.split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = flat[path]
+    return _sorted(out)
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _inverse_kernel(t):
+    if t.dim() == 5:      # (O, I, kd, kh, kw) -> (kd, kh, kw, I, O)
+        return t.permute(2, 3, 4, 1, 0)
+    if t.dim() == 4:      # (O, I, kh, kw) -> (kh, kw, I, O)
+        return t.permute(2, 3, 1, 0)
+    if t.dim() == 2:
+        return t.t()
+    raise ValueError(f"kernel of rank {t.dim()}")
+
+
+def _to_params(sd, what) -> dict:
+    """Parameter state dict -> flax params tree: a weight of rank >= 2 is a
+    kernel, of rank 1 a BatchNorm scale."""
+    flat = {}
+    for name, t in sd.items():
+        *mods, leaf = name.split(".")
+        if leaf == "weight":
+            leaf, t = ("kernel", _inverse_kernel(t)) if t.dim() >= 2 else ("scale", t)
+        elif leaf not in ("bias", "gamma", "wx0_bias"):
+            raise KeyError(f"unmapped {what} parameter {name}")
+        flat["/".join(mods + [leaf])] = t.detach()
+    return _nest(flat)
+
+
+def torch_to_jax_generator(state_dict) -> tuple[dict, dict]:
+    """MultiScaleGen state dict (or a dict of its parameters alone) ->
+    (params, batch_stats) trees; the inverse of jax_to_torch_generator."""
+    params, stats = {}, {}
+    for name, t in state_dict.items():
+        *mods, leaf = name.split(".")
+        if leaf in ("running_mean", "running_var"):
+            stats["/".join(mods + [leaf[len("running_"):]])] = t.detach()
+        elif leaf != "num_batches_tracked":
+            params[name] = t
+    return _to_params(params, "generator"), _nest(stats)
+
+
+def torch_to_jax_discriminator(state_dict) -> dict:
+    """The port's MultiScaleDiscrim state dict -> its flax params tree."""
+    return _to_params(state_dict, "discriminator")
+
+
+def torch_to_jax_encoder(state_dict, to_vocab=None) -> dict:
+    """The port's Seq2Seq state dict -> the flax Seq2Seq params tree; with
+    `to_vocab` = (weight (V, H), bias (V,)) the decoder's projection too.
+    Each gate's h-bias is bias_ih + bias_hh (flax's input kernels have none)."""
+    flat = {}
+    for name, t in state_dict.items():
+        if name == "encoder.embed.weight":
+            flat["encoder/embed/embedding"] = t.detach()
+            continue
+        m = re.match(r"^encoder\.lstm\.(weight_ih|weight_hh|bias_hh|bias_ih)_l(\d+)(_reverse)?$",
+                     name)
+        if m is None:
+            raise KeyError(f"unmapped encoder parameter {name}")
+        kind, layer, rev = m.groups()
+        if kind == "bias_ih":
+            continue
+        cell = f"encoder/l{layer}_{'bwd' if rev else 'fwd'}/cell"
+        src = "i" if kind == "weight_ih" else "h"
+        t = t.detach()
+        if kind == "bias_hh":
+            t = t + state_dict[name.replace("bias_hh", "bias_ih")].detach()
+        for gate, part in zip(_GATES, t.chunk(4, dim=0)):
+            if kind == "bias_hh":
+                flat[f"{cell}/h{gate}/bias"] = part
+            else:
+                flat[f"{cell}/{src}{gate}/kernel"] = part.t()
+    if to_vocab is not None:
+        flat["encoder/to_vocab/kernel"] = to_vocab[0].detach().t()
+        flat["encoder/to_vocab/bias"] = to_vocab[1].detach()
+    return _nest(flat)
+
+
 def jax_to_torch_discriminator(params) -> dict:
     """MultiScaleDiscrim `params` tree -> the port's MultiScaleDiscrim state dict."""
     return _params(params, _DISC_PARAM, "discriminator")
@@ -132,3 +238,118 @@ def jax_to_torch_encoder(params) -> dict:
         sd[f"encoder.lstm.bias_ih_{name}"] = torch.zeros(w_ih.shape[0])
         sd[f"encoder.lstm.bias_hh_{name}"] = _tensor(b_hh)
     return sd
+
+
+# ------------------------------------------------------------- the train state
+
+def _adam_moments(opt, named_params, key):
+    """name -> the optimizer's `key` moment (zeros before the first step) and
+    the step count (0 before it)."""
+    out, count = {}, 0
+    for name, p in named_params:
+        st = opt.state.get(p, {})
+        out[name] = st[key] if key in st else torch.zeros_like(p)
+        if "step" in st:
+            count = int(st["step"])
+    return out, count
+
+
+def _adam_tree(opt, named_params, wrap):
+    mu, count = _adam_moments(opt, named_params, "exp_avg")
+    nu, _ = _adam_moments(opt, named_params, "exp_avg_sq")
+    return {"0": {"count": np.array(count, np.int32), "mu": wrap(mu), "nu": wrap(nu)},
+            "1": {}}
+
+
+def _encoder_tree(enc):
+    return {"params": torch_to_jax_encoder(
+        enc.state_dict(), (enc.encoder.to_vocab_weight, enc.encoder.to_vocab_bias))}
+
+
+def torch_state_to_jax(step) -> dict:
+    """The GanTrainState tree of a port TrainStep (its gan's modules, both
+    optimizers and its step counter), leaves as tensors in the JAX layout."""
+    gan = step.gan
+    g_params, g_stats = torch_to_jax_generator(gan.gen.state_dict())
+    d_named = [list(d.named_parameters()) for d in gan.discrims]
+    g_named = list(gan.gen.named_parameters())
+
+    def wrap_g(moments):
+        return {"g": torch_to_jax_generator(moments)[0]}
+
+    def wrap_d(moments):
+        return {"d": {str(k): torch_to_jax_discriminator(
+            {n: moments[f"{k}.{n}"] for n, _ in named}) for k, named in enumerate(d_named)}}
+
+    d_flat = [(f"{k}.{n}", p) for k, named in enumerate(d_named) for n, p in named]
+    return {
+        "step": np.array(step.step, np.int32),
+        "g_vars": {"batch_stats": g_stats, "params": g_params},
+        "d_vars": {str(k): {"params": torch_to_jax_discriminator(d.state_dict())}
+                   for k, d in enumerate(gan.discrims)},
+        "txt_vars": None if gan.cond_encoder is None else _encoder_tree(gan.cond_encoder),
+        "m_vars": None,
+        "opt_g_state": _adam_tree(step.opt_g, g_named, wrap_g),
+        "opt_d_state": _adam_tree(step.opt_d, d_flat, wrap_d),
+    }
+
+
+def _load_adam(opt, named_params, tree, unwrap):
+    """Set each parameter's Adam state from an optax adam state tree."""
+    adam = tree["0"]
+    count = int(np.asarray(adam["count"]))
+    mu, nu = unwrap(adam["mu"]), unwrap(adam["nu"])
+    for name, p in named_params:
+        if count == 0:
+            opt.state.pop(p, None)
+            continue
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu[name].to(p.device, p.dtype).contiguous(),
+                        "exp_avg_sq": nu[name].to(p.device, p.dtype).contiguous()}
+
+
+def load_encoder_vars(enc, txt_vars):
+    """Caption-encoder variables {"params": ...} into the port's Seq2Seq,
+    to_vocab into its buffers when the tree has it."""
+    params = txt_vars["params"]
+    dev = enc.encoder.embed.weight.device
+    enc.load_state_dict({k: v.to(dev) for k, v in jax_to_torch_encoder(params).items()})
+    tv = params.get("encoder", {}).get("to_vocab")
+    if tv is not None:
+        enc.encoder.to_vocab_weight.copy_(_tensor(np.asarray(tv["kernel"]).T))
+        enc.encoder.to_vocab_bias.copy_(_tensor(tv["bias"]))
+
+
+def jax_state_to_torch(tree, step) -> None:
+    """Load a GanTrainState tree (numpy leaves) into a port TrainStep: its
+    gan's modules, both optimizers' Adam states and its step counter."""
+    gan = step.gan
+    dev = next(gan.gen.parameters()).device
+
+    def put(sd, module):
+        module.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+
+    put(jax_to_torch_generator(tree["g_vars"]["params"], tree["g_vars"].get("batch_stats")),
+        gan.gen)
+    if len(tree["d_vars"]) != len(gan.discrims):
+        raise ValueError(f"the state has {len(tree['d_vars'])} discriminators, "
+                         f"the model {len(gan.discrims)}")
+    for k, d in enumerate(gan.discrims):
+        put(jax_to_torch_discriminator(tree["d_vars"][str(k)]["params"]), d)
+    if gan.cond_encoder is not None and tree.get("txt_vars") is not None:
+        with torch.no_grad():
+            load_encoder_vars(gan.cond_encoder, tree["txt_vars"])
+    _load_adam(step.opt_g, list(gan.gen.named_parameters()), tree["opt_g_state"],
+               lambda t: jax_to_torch_generator(t["g"]))
+
+    def unwrap_d(t):
+        out = {}
+        for k in range(len(gan.discrims)):
+            out.update({f"{k}.{n}": v for n, v in
+                        jax_to_torch_discriminator(t["d"][str(k)]).items()})
+        return out
+
+    _load_adam(step.opt_d, [(f"{k}.{n}", p) for k, d in enumerate(gan.discrims)
+                            for n, p in d.named_parameters()],
+               tree["opt_d_state"], unwrap_d)
+    step.step = int(np.asarray(tree["step"]))

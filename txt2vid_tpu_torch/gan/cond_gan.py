@@ -8,17 +8,22 @@ unconditional pairing + mean of the two conditional pairings) / 2. The G loss
 re-forwards D on the fakes against cached real predictions. Mismatched
 captions are a derangement of the scale-0 cond, truncated per scale.
 Discriminators are MultiScaleDiscrims, whose output is a list of per-scale
-triples (uncond, cond | None, features). The gradient penalty comes in a
-later slice.
+triples (uncond, cond | None, features).
+
+With gp_lambda > 0 each discriminator's loss gains gp_lambda times its
+multiscale gradient penalty, evaluated per scale through `scale_indices=[si]`
+on alpha-interpolated inputs (cond_gan.py:142-149, 190-235). The penalty's
+forward and its create_graph gradient run under no_kernel(), as the JAX
+package runs them under no_pallas(): FusedAttention has no second-order
+gradient and raises on one. gp_only returns the weighted penalty alone; it
+shares no intermediates with the main loss, so main + gp_only is the loss
+with both terms, and so are their parameter gradients.
 """
 
 import torch
 
-
-def _no_gradient_penalty(gp_lambda, gp_only):
-    if gp_lambda > 0 or gp_only:
-        raise NotImplementedError("the gradient penalty (gp_lambda > 0, gp_only) "
-                                  "comes in a later slice of the port")
+from txt2vid_tpu_torch.gan.losses import multiscale_gradient_penalty
+from txt2vid_tpu_torch.ops.attention import no_kernel
 
 
 class CondGan:
@@ -54,10 +59,16 @@ class CondGan:
 
     def discrim_forward(self, i, real_scales=None, fake_scales=None, cond_scales=None,
                         fake_cond_scales=None, loss=None, gp_lambda: float = -1.0,
-                        gp_only: bool = False):
-        """Per-discriminator D-phase loss. Returns (loss | None, fake_pred, real_pred)."""
-        _no_gradient_penalty(gp_lambda, gp_only)
+                        alphas=None, gp_only: bool = False):
+        """Per-discriminator D-phase loss. Returns (loss | None, fake_pred, real_pred).
+        alphas: the GP's interpolation weights per scale (needed with
+        gp_lambda > 0)."""
         l = fake_pred = real_pred = None
+        if gp_only:
+            if loss is not None and gp_lambda > 0:
+                l = gp_lambda * self.gradient_penalty(i, alphas, real_scales, fake_scales,
+                                                      cond_scales, fake_cond_scales)
+            return l, fake_pred, real_pred
         if cond_scales is not None:
             real_cc = self.apply_discrim(i, real_scales, cond_scales)
             real_pred = real_cc
@@ -84,13 +95,34 @@ class CondGan:
             if loss is not None and fake_pred is not None and real_pred is not None:
                 l = torch.stack([loss.discrim_loss(fake=f[0], real=r[0])
                                  for f, r in zip(fake_pred, real_pred)]).mean()
+        if l is not None and gp_lambda > 0:
+            l = l + gp_lambda * self.gradient_penalty(i, alphas, real_scales, fake_scales,
+                                                      cond_scales, fake_cond_scales)
         return l, fake_pred, real_pred
+
+    def gradient_penalty(self, i, alphas, real_scales, fake_scales, cond_scales=None,
+                         fake_cond_scales=None):
+        """Discriminator i's multiscale GP (cond_gan.py:198-222), under no_kernel()."""
+        d = self.discrims[i]
+
+        def d_fn_for_scale(si):
+            def fn(x, cond):
+                u, c, _ = d([x], cond=None if cond is None else [cond],
+                            scale_indices=[si])[0]
+                return u, c
+            return fn
+
+        with no_kernel():
+            return multiscale_gradient_penalty(
+                d_fn_for_scale, alphas, real_scales, fake_scales,
+                real_conds=cond_scales, fake_conds=fake_cond_scales)
 
     def all_discrim_forward(self, real_scales=None, fake_scales=None, cond_scales=None,
                             loss=None, perms=None, gp_lambda: float = -1.0,
-                            gp_only: bool = False):
+                            alphas=None, gp_only: bool = False):
         """Loop over discriminators; perms[i] is discriminator i's derangement
-        (needed with conds and a loss). Returns (losses, fake_preds, real_preds)."""
+        (needed with conds and a loss), alphas[i] its GP weights per scale
+        (needed with gp_lambda > 0). Returns (losses, fake_preds, real_preds)."""
         losses, fake_preds, real_preds = [], [], []
         for i in range(len(self.discrims)):
             fake_conds = None
@@ -99,7 +131,8 @@ class CondGan:
             l, f, r = self.discrim_forward(
                 i, real_scales=real_scales, fake_scales=fake_scales,
                 cond_scales=cond_scales, fake_cond_scales=fake_conds, loss=loss,
-                gp_lambda=gp_lambda, gp_only=gp_only)
+                gp_lambda=gp_lambda, alphas=None if alphas is None else alphas[i],
+                gp_only=gp_only)
             losses.append(l)
             fake_preds.append(f)
             real_preds.append(r)

@@ -1,10 +1,14 @@
-"""GAN loss zoo (counterpart of txt2vid_tpu/gan/losses.py:27-125).
+"""GAN loss zoo and gradient penalty (counterpart of
+txt2vid_tpu/gan/losses.py:27-197).
 
 Every loss exposes `discrim_loss(fake=..., real=...)` and
 `gen_loss(fake=..., real=...)` over raw logits, with the JAX package's
 semantics: real = 1 / fake = 0 for the vanilla loss, the reference's effective
-hinge math, and the RaSGAN typo fixed. Losses are float32. The gradient
-penalty comes in a later slice.
+hinge math, and the RaSGAN typo fixed. Losses are float32.
+
+The gradient penalties take their interpolation weights alpha from the
+caller (one per batch element): JAX's jax.random.uniform stream cannot be
+reproduced in torch, so a test pins alpha on both sides.
 """
 
 import torch
@@ -115,3 +119,53 @@ class RaLSGANLoss:
         fake, real = fake.float(), real.float()
         return (((real - fake.mean() + 1.0) ** 2).mean()
                 + ((fake - real.mean() - 1.0) ** 2).mean()) / 2
+
+
+# ---------------------------------------------------------------------------
+# Gradient penalty (losses.py:132-197)
+# ---------------------------------------------------------------------------
+
+def _interpolate(alpha, real, fake):
+    return alpha * real + (1.0 - alpha) * fake
+
+
+def gradient_penalty(d_fn, alpha, real_x, fake_x, real_cond=None, fake_cond=None,
+                     zero_center: bool = False, combine: str = "mean"):
+    """WGAN-GP on alpha-interpolated inputs (losses.py:136-174).
+
+    d_fn(x, cond) -> (uncond_logit | None, cond_logit | None); alpha: (B,) in
+    [0, 1), shared by x and cond. The norm is of the gradient of the summed
+    logits w.r.t. the interpolated x only, taken with create_graph=True so the
+    penalty can be differentiated w.r.t. D's parameters; float32, per sample
+    sqrt(sum g^2 + 1e-12). zero_center: ||g||^2 (R1-style) instead of
+    (||g|| - 1)^2; combine: "mean" or "sum" over the batch."""
+    b = real_x.shape[0]
+    a = alpha.reshape((b,) + (1,) * (real_x.ndim - 1)).to(real_x.dtype)
+    ix = _interpolate(a, real_x.detach(), fake_x.detach()).requires_grad_(True)
+    icond = None
+    if real_cond is not None and fake_cond is not None:
+        ac = alpha.reshape((b,) + (1,) * (real_cond.ndim - 1)).to(real_cond.dtype)
+        icond = _interpolate(ac, real_cond, fake_cond)
+    uncond, cond_out = d_fn(ix, icond)
+    total = sum(t.sum() for t in (uncond, cond_out) if t is not None)
+    (grads,) = torch.autograd.grad(total, ix, create_graph=True)
+    grads = grads.float()
+    norms = torch.sqrt(torch.sum(grads.reshape(b, -1) ** 2, dim=1) + 1e-12)
+    per_sample = norms ** 2 if zero_center else (norms - 1.0) ** 2
+    return per_sample.sum() if combine == "sum" else per_sample.mean()
+
+
+def multiscale_gradient_penalty(d_fn_for_scale, alphas, real_xs, fake_xs,
+                                real_conds=None, fake_conds=None):
+    """Per-scale zero-centred sum-combined GP, summed over scales
+    (losses.py:177-197). d_fn_for_scale(i) -> the d_fn of scale i; alphas[i]
+    holds at least scale i's batch of weights (the first B_i are used)."""
+    total = 0.0
+    for i in range(len(real_xs)):
+        total = total + gradient_penalty(
+            d_fn_for_scale(i), alphas[i][: real_xs[i].shape[0]],
+            real_x=real_xs[i], fake_x=fake_xs[i],
+            real_cond=None if real_conds is None else real_conds[i],
+            fake_cond=None if fake_conds is None else fake_conds[i],
+            zero_center=True, combine="sum")
+    return total

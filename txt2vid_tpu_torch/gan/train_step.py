@@ -1,20 +1,33 @@
-"""The GAN train step (counterpart of txt2vid_tpu/gan/train_step.py:281-578,
+"""The GAN train step (counterpart of txt2vid_tpu/gan/train_step.py:129-578,
 `build_train_step`).
 
 One step: the frozen caption encoding, the real pyramid, one generator
-forward whose fakes, detached, feed the D phase, the D update, the real
-predictions of the updated D without gradient, and the G update through the
-updated D, pulled back through the same generator forward. The generator's
-BatchNorm running statistics are updated once per step. Modules and
-optimizers are updated in place.
+forward whose fakes, detached, feed the D phase, `discrim_steps` D updates on
+those same fakes, the real predictions of the updated D without gradient, and
+the G update through the updated D, pulled back through the same generator
+forward. The generator's BatchNorm running statistics are updated once per
+step. Modules and optimizers are updated in place.
 
-This slice implements frame_sizes, subsample_input, latent_size,
-mean_discrim_loss, mean_gen_loss and shared_gen_fwd, with discrim_steps ==
-gen_steps == 1; any other field away from its default raises
-NotImplementedError naming it. The step runs one generator forward for either
-value of shared_gen_fwd: outside end2end, which is refused, JAX's two-forward
-form computes the same numbers (its D-phase forward discards its BatchNorm
-statistics), so the flag changes nothing here.
+The D phase carries the JAX step's regularization:
+- gp_lambda > 0 adds the gradient penalty (gan/cond_gan.py) to each
+  discriminator's loss; with gp_every > 1 (lazy GP) it runs only on steps
+  with step % gp_every == 0, weighted gp_lambda * gp_every, and off steps
+  skip it entirely;
+- gp_quarantine computes the main loss's and the GP's gradients as two
+  backward passes, zeroes each non-finite leaf of the GP's with torch.where
+  (a multiply would turn inf * 0 into NaN) and counts the zeroed leaves, plus
+  one for a non-finite GP value, as the `gp_quarantined` metric;
+- clip_grad > 0 scales each phase's gradients to that global norm, reusing
+  the grad-norm metric's reduction; a non-finite norm sets them to zeros (not
+  None: Adam still steps on zeros, as optax does).
+
+The step counter `step` sets the draws and the lazy-GP phase; a restored
+checkpoint sets it (convert.jax_state_to_torch). gen_steps > 1, end2end,
+img_model and compute_dtype raise NotImplementedError naming the field. The
+step runs one generator forward for either value of shared_gen_fwd: outside
+end2end, which is refused, JAX's two-forward form computes the same numbers
+(its D-phase forward discards its BatchNorm statistics), so the flag changes
+nothing here.
 """
 
 from dataclasses import dataclass, fields
@@ -51,6 +64,7 @@ class TrainConfig:
 
 _IMPLEMENTED = {"frame_sizes", "subsample_input", "latent_size", "mean_discrim_loss",
                 "mean_gen_loss", "shared_gen_fwd", "discrim_steps", "gen_steps",
+                "gp_lambda", "gp_every", "gp_quarantine", "clip_grad",
                 # only read with end2end, which is refused below
                 "end2end_txt_in_g"}
 
@@ -63,21 +77,32 @@ def check_config(config: TrainConfig):
             raise NotImplementedError(
                 f"TrainConfig.{f.name}={getattr(config, f.name)!r} comes in a later "
                 "slice of the port")
-    if config.discrim_steps != 1 or config.gen_steps != 1:
-        raise NotImplementedError("discrim_steps and gen_steps other than 1 come in "
-                                  "a later slice of the port")
+    if config.gen_steps != 1:
+        raise NotImplementedError("gen_steps other than 1 comes in a later slice of "
+                                  "the port")
+    if config.discrim_steps < 1 or config.gp_every < 1:
+        raise ValueError("discrim_steps and gp_every must be at least 1")
 
 
 @dataclass
 class Draws:
     """The random numbers of one step: z (B, latent_size), the temporal phases
-    of the real pyramid and of the generator's subsamples, and one caption
-    derangement per discriminator."""
+    of the real pyramid and of the generator's subsamples, and for the first D
+    step one caption derangement per discriminator and, with the gradient
+    penalty, its interpolation weights per discriminator and scale (each at
+    least that scale's batch long). `later_d_steps` holds (perms, alphas) of
+    each further D step (discrim_steps > 1)."""
 
     z: torch.Tensor
     pyramid_phases: Sequence[int]
     gen_phases: Sequence[int]
     perms: Sequence[torch.Tensor]
+    alphas: Sequence[Sequence[torch.Tensor]] | None = None
+    later_d_steps: Sequence[tuple] = ()
+
+    def d_step(self, j: int):
+        """(perms, alphas) of D step j."""
+        return (self.perms, self.alphas) if j == 0 else self.later_d_steps[j - 1]
 
 
 def adam(params, lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999):
@@ -91,12 +116,54 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def clip_by_norm_(grads, norm, clip: float):
+    """Scale `grads` in place so their global norm (`norm`, already computed)
+    is at most `clip` (_clip_by_norm, train_step.py:129-138). A non-finite
+    norm zeroes them, by select: inf * 0 would be NaN."""
+    finite = torch.isfinite(norm)
+    scale = torch.where(finite, torch.clamp(clip / torch.clamp(norm, min=1e-20), max=1.0),
+                        torch.zeros_like(norm))
+    for g in grads:
+        g.copy_(torch.where(finite, g * scale, torch.zeros_like(g)))
+
+
+def quarantine_nonfinite_(grads) -> torch.Tensor:
+    """Zero in place every gradient tensor holding a non-finite value (by
+    select) and return how many were zeroed, an int32 device scalar
+    (_quarantine_nonfinite, train_step.py:141-158)."""
+    ok = [torch.isfinite(g).all() for g in grads]
+    for g, good in zip(grads, ok):
+        g.copy_(torch.where(good, g, torch.zeros_like(g)))
+    return torch.stack([~good for good in ok]).sum().to(torch.int32)
+
+
+def _grads(params):
+    """Each parameter's gradient, zeros where backward left None (optax steps
+    every leaf, torch's Adam skips a None gradient)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+def _norm_and_clip(params, clip: float):
+    """The pre-clip global norm of the parameters' gradients (the metric),
+    then the in-step clip when `clip` is set."""
+    grads = _grads(params)
+    norm = global_norm(grads)
+    if clip:
+        clip_by_norm_(grads, norm, clip)
+    return norm
+
+
 class TrainStep:
     """`step(batch, draws=None) -> metrics`. batch: "video" (B, T, H, W, C) float
     in [-1, 1] or uint8, and with a caption encoder "captions" (B, L) int and
     "lengths" (B,) on the host. Without `draws` they come from a CPU
     torch.Generator seeded from (seed, step). Metrics are device scalars:
-    loss_d, loss_g, grad_norm_d, grad_norm_g (pre-update global norms)."""
+    loss_d (summed over D steps), loss_g, grad_norm_d, grad_norm_g (pre-clip
+    global norms of the last update of each phase) and, with gp_quarantine
+    and gp_lambda > 0, gp_quarantined (int32)."""
 
     def __init__(self, gan, losses, opt_g, opt_d, config: TrainConfig, seed: int = 0):
         check_config(config)
@@ -109,6 +176,10 @@ class TrainStep:
         self.step = 0
 
     def draw(self, batch_size: int, device) -> Draws:
+        """The step's draws from a CPU generator seeded from (seed, step): z,
+        the phases, then per D step and discriminator its derangement and,
+        with gp_lambda > 0, one (batch_size,) uniform per scale (every step,
+        so the stream does not depend on the lazy-GP phase)."""
         gen = torch.Generator()
         gen.manual_seed(int(np.random.SeedSequence([self.seed, self.step])
                             .generate_state(1)[0]))
@@ -118,9 +189,60 @@ class TrainStep:
         pyramid = [int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_pyr)]
         gen_phases = [int(torch.randint(0, 2, (), generator=gen))
                       for _ in range(self.gan.gen.num_blocks - 1)]
-        perms = [gen_perm_device(batch_size, generator=gen).to(device)
-                 for _ in self.gan.discrims]
-        return Draws(z.to(device), pyramid, gen_phases, perms)
+        d_steps = []
+        for _ in range(cfg.discrim_steps):
+            perms, alphas = [], [] if cfg.gp_lambda > 0 else None
+            for _ in self.gan.discrims:
+                perms.append(gen_perm_device(batch_size, generator=gen).to(device))
+                if alphas is not None:
+                    alphas.append([torch.rand(batch_size, generator=gen).to(device)
+                                   for _ in cfg.frame_sizes])
+            d_steps.append((perms, alphas))
+        return Draws(z.to(device), pyramid, gen_phases, *d_steps[0],
+                     later_d_steps=d_steps[1:])
+
+    def _d_loss(self, real_scales, fakes, cond_scales, perms, alphas, gp_lambda,
+                gp_only=False):
+        gan, cfg = self.gan, self.config
+        ls, _, _ = gan.all_discrim_forward(real_scales, fakes, cond_scales,
+                                           loss=self.losses, perms=perms,
+                                           gp_lambda=gp_lambda, alphas=alphas,
+                                           gp_only=gp_only)
+        total = gan.weighted_sum(ls)
+        if cfg.mean_discrim_loss:
+            total = total / cfg.discrim_steps
+        return total
+
+    def _d_step(self, d_params, real_scales, fakes, cond_scales, perms, alphas):
+        """One D update; returns (loss, pre-clip grad norm, zeroed GP leaves
+        or None)."""
+        cfg = self.config
+        lazy = cfg.gp_lambda > 0 and cfg.gp_every > 1
+        gp_on = cfg.gp_lambda > 0 and (not lazy or self.step % cfg.gp_every == 0)
+        gp_scale = cfg.gp_lambda * (cfg.gp_every if lazy else 1)
+        quarantined = None
+        self.opt_d.zero_grad(set_to_none=True)
+        if gp_on and cfg.gp_quarantine:
+            loss = self._d_loss(real_scales, fakes, cond_scales, perms, alphas, -1.0)
+            loss.backward()
+            loss_gp = self._d_loss(real_scales, fakes, cond_scales, perms, alphas,
+                                   gp_scale, gp_only=True)
+            g_gp = torch.autograd.grad(loss_gp, d_params, allow_unused=True)
+            g_gp = [torch.zeros_like(p) if g is None else g for p, g in zip(d_params, g_gp)]
+            quarantined = quarantine_nonfinite_(g_gp)
+            ok = torch.isfinite(loss_gp)
+            quarantined = quarantined + (~ok).to(torch.int32)
+            loss = loss + torch.where(ok, loss_gp, torch.zeros_like(loss_gp))
+            torch._foreach_add_(_grads(d_params), g_gp)
+        else:
+            loss = self._d_loss(real_scales, fakes, cond_scales, perms, alphas,
+                                gp_scale if gp_on else -1.0)
+            loss.backward()
+        norm = _norm_and_clip(d_params, cfg.clip_grad)
+        self.opt_d.step()
+        if cfg.gp_quarantine and cfg.gp_lambda > 0 and quarantined is None:
+            quarantined = torch.zeros((), dtype=torch.int32, device=loss.device)
+        return loss.detach(), norm, quarantined
 
     def __call__(self, batch, draws: Draws | None = None):
         gan, cfg, losses = self.gan, self.config, self.losses
@@ -146,17 +268,16 @@ class TrainStep:
                 f"match the frame_sizes pyramid "
                 f"{[tuple(r.shape[2:4]) for r in real_scales]}")
 
-        # D phase: fakes detached, so the backward reaches only D's parameters
+        # D phase: fakes detached, so the backward reaches only D's parameters;
+        # every D step updates against the same fakes
         d_params = [p for d in gan.discrims for p in d.parameters()]
-        self.opt_d.zero_grad(set_to_none=True)
-        ls, _, _ = gan.all_discrim_forward(real_scales, fakes, cond_scales, loss=losses,
-                                           perms=draws.perms)
-        loss_d = gan.weighted_sum(ls)
-        if cfg.mean_discrim_loss:
-            loss_d = loss_d / cfg.discrim_steps
-        loss_d.backward()
-        grad_norm_d = global_norm([p.grad for p in d_params if p.grad is not None])
-        self.opt_d.step()
+        loss_d = quarantined = None
+        for j in range(cfg.discrim_steps):
+            loss_j, grad_norm_d, q = self._d_step(d_params, real_scales, fakes,
+                                                  cond_scales, *draws.d_step(j))
+            loss_d = loss_j if loss_d is None else loss_d + loss_j
+            if q is not None:
+                quarantined = q if quarantined is None else quarantined + q
 
         # G phase, through the updated D; its real predictions carry no gradient
         with torch.no_grad():
@@ -171,12 +292,15 @@ class TrainStep:
             loss_g = loss_g / cfg.gen_steps
         dfakes = torch.autograd.grad(loss_g, leaves)
         torch.autograd.backward(fakes_live, dfakes)
-        grad_norm_g = global_norm([p.grad for p in g_params if p.grad is not None])
+        grad_norm_g = _norm_and_clip(g_params, cfg.clip_grad)
         self.opt_g.step()
 
         self.step += 1
-        return {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
-                "grad_norm_d": grad_norm_d, "grad_norm_g": grad_norm_g}
+        metrics = {"loss_d": loss_d, "loss_g": loss_g.detach(),
+                   "grad_norm_d": grad_norm_d, "grad_norm_g": grad_norm_g}
+        if quarantined is not None:
+            metrics["gp_quarantined"] = quarantined
+        return metrics
 
 
 def build_train_step(gan, losses, opt_g, opt_d, config: TrainConfig,

@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from txt2vid_tpu_torch.ops.attention import attention_core_auto
-from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, xavier_normal_
+from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, kernel_init_
 from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
                                            max_pool_3d, upsample_nearest_2d)
 
@@ -21,7 +21,7 @@ _FLAX_MOMENTUM = 0.9
 
 
 def _init_conv(conv, generator, gain: float = 1.0):
-    xavier_normal_(conv.weight, gain, generator)
+    kernel_init_(conv.weight, gain, generator)
     if conv.bias is not None:
         nn.init.zeros_(conv.bias)
 

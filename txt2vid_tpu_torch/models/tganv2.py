@@ -21,7 +21,7 @@ from torch import nn
 from txt2vid_tpu_torch.models.conv_lstm import ConvLSTM
 from txt2vid_tpu_torch.models.layers import RenderBlock, UpBlock
 from txt2vid_tpu_torch.models.resnet3d import Resnet3D
-from txt2vid_tpu_torch.ops.initializers import xavier_normal_
+from txt2vid_tpu_torch.ops.initializers import kernel_init_
 from txt2vid_tpu_torch.ops.subsample import subsample_video
 
 
@@ -71,7 +71,7 @@ class MultiScaleGen(nn.Module):
             prev = ch
 
     def init_weights(self, generator):
-        xavier_normal_(self.fc.weight, generator=generator)
+        kernel_init_(self.fc.weight, generator=generator)
         nn.init.zeros_(self.fc.bias)
 
     def forward(self, z, cond=None, train: bool = False, output_blocks=None,

@@ -1,0 +1,293 @@
+"""GAN training CLI of the port (counterpart of txt2vid_tpu/train/gan.py:54-465):
+the JAX CLI's flag surface and defaults, components built by reflection
+(config.py, which maps `txt2vid_tpu.*` and `txt2vid.*` specs onto the port),
+checkpoints in the JAX package's format.
+
+Example (conditional TGANv2, scripts/run_tganv2_cond.sh with the module name
+changed, plus the regularization of scripts/r9_session.sh):
+  python -m txt2vid_tpu_torch.train.gan \\
+      --G txt2vid_tpu.models.tganv2_cond.MultiScaleGen \\
+      --D txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim \\
+      --sent txt2vid_tpu.models.txt.Seq2Seq \\
+      --data config/synth.json --anno sent.pickle --vocab vocab.pickle \\
+      --frame_sizes 8 16 32 64 --subsample_input --num_channels 3 \\
+      --D_loss txt2vid_tpu.gan.losses.RSGANLoss \\
+      --G_lr 0.0002 --D_lr 0.0002 --G_beta2 0.999 --D_beta2 0.999 \\
+      --gp_lambda 0.5 --gp_every 2 --clip_grad 100 --g_ema 0.999 --batch_size 40
+
+It runs on CUDA unless --device names another device (the tests pass
+--device cpu). --weights, --resume and --sent_weights read checkpoints the
+JAX package wrote, and the port's checkpoints open in the JAX package. A
+NanAbort exits with code 42. Flags of levers the port does not have yet raise
+NotImplementedError naming the flag.
+"""
+
+import argparse
+import sys
+from collections import deque
+
+import numpy as np
+import torch
+
+from txt2vid_tpu_torch.config import create_object
+from txt2vid_tpu_torch.convert import jax_state_to_torch, load_encoder_vars, torch_state_to_jax
+from txt2vid_tpu_torch.data import get_loader, load_pickle
+from txt2vid_tpu_torch.gan import trainer
+from txt2vid_tpu_torch.gan.cond_gan import CondGan
+from txt2vid_tpu_torch.gan.losses import MixedGanLoss
+from txt2vid_tpu_torch.gan.train_step import TrainConfig, adam, build_train_step
+from txt2vid_tpu_torch.ops.initializers import init_from_seed
+from txt2vid_tpu_torch.train.setup import setup
+from txt2vid_tpu_torch.utils import count_params, status
+from txt2vid_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_state,
+                                                restore_txt_vars)
+
+# (flag, test of the parsed value): levers of the JAX CLI the port does not have yet
+UNPORTED = (
+    ("--bf16", lambda a: a.bf16), ("--bf16_nu", lambda a: a.bf16_nu),
+    ("--bf16_params", lambda a: a.bf16_params), ("--sgd", lambda a: a.sgd),
+    ("--end2end", lambda a: a.end2end), ("--end2end_d_only", lambda a: a.end2end_d_only),
+    ("--gen_steps", lambda a: a.gen_steps > 1), ("--sp", lambda a: a.sp > 1),
+    ("--fsdp", lambda a: a.fsdp > 1), ("--multihost", lambda a: a.multihost),
+    ("--device_data", lambda a: a.device_data),
+    ("--steps_per_dispatch", lambda a: a.steps_per_dispatch > 1),
+    ("--M", lambda a: a.M is not None), ("--img_model", lambda a: a.img_model),
+)
+
+
+def check_flags(args):
+    for flag, used in UNPORTED:
+        if used(args):
+            raise NotImplementedError(f"{flag} comes in a later slice of the port")
+    if args.clip_grad_split and args.discrim_steps != 1:
+        raise ValueError("--clip_grad_split requires discrim_steps == 1")
+
+
+def _seed(seed: int, k: int) -> int:
+    return int(np.random.SeedSequence([seed, k]).generate_state(1)[0])
+
+
+def device_batches(loader, device, depth: int):
+    """Host batches -> device batches (video and captions on `device`, lengths
+    on the host), copied `depth` batches ahead of the consumer."""
+    cuda = device.type == "cuda"
+
+    def put(b):
+        out = {}
+        for k, v in b.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if k == "lengths":
+                out[k] = t
+                continue
+            if k == "captions":
+                t = t.long()
+            out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t.to(device)
+        return out
+
+    q = deque()
+    for b in loader:
+        q.append(put(b))
+        if len(q) > max(depth, 0):
+            yield q.popleft()
+    while q:
+        yield q.popleft()
+
+
+class LoaderAdapter:
+    def __init__(self, loader, device, depth):
+        self.loader, self.device, self.depth = loader, device, depth
+
+    def __iter__(self):
+        return device_batches(self.loader, self.device, self.depth)
+
+    def __len__(self):
+        return len(self.loader)
+
+
+def main(args):
+    check_flags(args)
+    seed, device = setup(args)
+
+    vocab = None
+    if args.vocab:
+        status(f"Loading vocab from {args.vocab}")
+        vocab = load_pickle(args.vocab)
+
+    txt_encoder, cond_dim = None, 0
+    if not args.dont_use_sent and vocab is not None:
+        txt_encoder = create_object(args.sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
+                                    vocab_size=len(vocab), init_method=args.init_method)
+        cond_dim = txt_encoder.encoding_size
+        status(f"Sentence encode size = {cond_dim}")
+    else:
+        status("Not using sentence encoder")
+
+    gen = create_object(args.G, cond_dim=cond_dim, init_method=args.init_method)
+    discrims = [create_object(d, cond_dim=cond_dim, init_method=args.init_method)
+                for d in args.D]
+    for k, m in enumerate([gen, *discrims, txt_encoder]):
+        if m is not None:
+            init_from_seed(m, _seed(seed, k)).to(device)
+    gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas)
+
+    status("Using Adam")
+    opt_d = adam([p for d in discrims for p in d.parameters()], args.D_lr,
+                 args.D_beta1, args.D_beta2)
+    opt_g = adam(gen.parameters(), args.G_lr, args.G_beta1, args.G_beta2)
+    if args.clip_grad:
+        status(f"Clipping gradients to global norm {args.clip_grad}")
+
+    status(f"Loading data from {args.data}")
+    dset = create_object(args.data, vocab=vocab, anno=args.anno,
+                         frame_size=args.frame_sizes[-1], num_channels=args.num_channels,
+                         random_frames=args.random_frames, normalize=not args.uint8_input)
+    loader = get_loader(dset=dset, batch_size=args.batch_size, val=args.test,
+                        num_workers=args.workers, seed=seed)
+
+    config = TrainConfig(
+        frame_sizes=tuple(args.frame_sizes),
+        subsample_input=args.subsample_input,
+        discrim_steps=args.discrim_steps,
+        gen_steps=args.gen_steps,
+        gp_lambda=args.gp_lambda,
+        gp_every=args.gp_every,
+        gp_quarantine=args.gp_quarantine,
+        mean_discrim_loss=not args.no_mean_discrim_loss,
+        mean_gen_loss=not args.no_mean_gen_loss,
+        latent_size=gen.latent_size,
+        shared_gen_fwd=args.shared_gen_fwd,
+        clip_grad=args.clip_grad or 0.0,
+    )
+    if args.G_loss is None:
+        args.G_loss = args.D_loss
+    losses = MixedGanLoss(g_loss=create_object(args.G_loss), d_loss=create_object(args.D_loss))
+    step = build_train_step(gan, losses, opt_g, opt_d, config, seed=seed)
+
+    if args.resume and not args.weights:
+        args.weights = latest_checkpoint(args.out)
+        if args.weights:
+            status(f"Auto-resuming from {args.weights}")
+    if args.weights:
+        status(f"Loading weights from {args.weights}")
+        jax_state_to_torch(restore_state(torch_state_to_jax(step), args.weights), step)
+
+    ema = None
+    if args.g_ema and args.weights:
+        from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
+        ema = load_ema(args.weights, init_ema(gen))
+        if ema is not None:
+            status(f"Restored generator EMA from {args.weights}.ema")
+
+    if args.sent_weights:
+        status(f"Loading pre-trained sentence model from {args.sent_weights}")
+        with torch.no_grad():
+            load_encoder_vars(txt_encoder, restore_txt_vars(args.sent_weights))
+
+    n_params = sum(count_params(m) for m in [gen, *discrims, txt_encoder] if m is not None)
+    status("GAN has %d parameters (~%.2f * 10^8)" % (n_params, n_params / 1e8))
+    status(f"Dataset len= {len(loader) * args.batch_size} ({len(loader)} batches)")
+
+    dataset = LoaderAdapter(loader, device, args.prefetch)
+    if args.test:
+        trainer.test(gan=gan, num_samples=args.num_samples, dataset=dataset, params=args,
+                     vocab=vocab, ema=ema)
+        return
+    try:
+        trainer.train(gan=gan, train_step=step, num_epoch=args.epochs, dataset=dataset,
+                      params=args, vocab=vocab, seed=seed, ema=ema)
+    except trainer.NanAbort as e:
+        status(f"NAN_ABORT: {e} — exiting 42 (resume from the last checkpoint with a "
+               "fresh --seed)")
+        sys.exit(42)
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    trainer.add_params_to_parser(parser)
+    parser.add_argument('--device', type=str, default=None,
+                        help='torch device; default cuda (raises without a GPU)')
+    parser.add_argument('--multihost', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--coordinator', type=str, default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--num_processes', type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--process_id', type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--test', action='store_true')
+    parser.add_argument('--num_samples', type=int, default=1)
+    parser.add_argument('--seed', type=int, default=None)
+    parser.add_argument('--workers', type=int, default=2)
+    parser.add_argument('--prefetch', type=int, default=3,
+                        help='batches copied to the device ahead of the train step')
+    parser.add_argument('--device_data', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--steps_per_dispatch', type=int, default=1,
+                        help='not in the port yet (values above 1 raise)')
+    parser.add_argument('--frame_sizes', type=int, nargs='+', default=[64])
+    parser.add_argument('--num_channels', type=int, default=1)
+    parser.add_argument('--random_frames', type=int, default=0)
+    parser.add_argument('--epochs', type=int, default=5)
+    parser.add_argument('--batch_size', type=int, default=64)
+    parser.add_argument('--init_method', type=str, default='xavier')
+    parser.add_argument('--G_loss', type=str, default=None)
+    parser.add_argument('--G_lr', type=float, default=0.0001)
+    parser.add_argument('--G_beta1', type=float, default=0.5)
+    parser.add_argument('--G_beta2', type=float, default=0.9)
+    parser.add_argument('--D_loss', type=str,
+                        default='txt2vid_tpu_torch.gan.losses.VanillaGanLoss')
+    parser.add_argument('--D_lr', type=float, default=0.0001)
+    parser.add_argument('--D_beta1', type=float, default=0.5)
+    parser.add_argument('--D_beta2', type=float, default=0.9)
+    parser.add_argument('--weights', type=str, default=None)
+    parser.add_argument('--resume', action='store_true', default=False,
+                        help='resume from the latest checkpoint in --out')
+    parser.add_argument('--sent_weights', type=str, default=None)
+    parser.add_argument('--data', type=str, required=True)
+    parser.add_argument('--anno', type=str, default=None)
+    parser.add_argument('--vocab', type=str, default=None)
+    parser.add_argument('--M', type=str, default=None, help='not in the port yet (raises)')
+    parser.add_argument('--G', type=str, required=True)
+    parser.add_argument('--D', type=str, nargs='+', required=True)
+    parser.add_argument('--D_names', type=str, nargs='+', default=None)
+    parser.add_argument('--D_lambdas', type=float, nargs='+', default=None)
+    parser.add_argument('--sent', type=str, default=None)
+    parser.add_argument('--dont_use_sent', action='store_true', default=False)
+    parser.add_argument('--end2end', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--end2end_d_only', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--sgd', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--clip_grad', type=float, default=None,
+                        help='global gradient-norm clip for both optimizers')
+    parser.add_argument('--clip_grad_split', action='store_true', default=False,
+                        help='runs the same in-step clip: the JAX package splits the '
+                             'clip into separate programs only to dodge a TPU '
+                             'miscompile, and its tests pin the two equal')
+    parser.add_argument('--bf16_nu', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--bf16', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--bf16_params', action='store_true', default=False,
+                        help='not in the port yet (raises)')
+    parser.add_argument('--shared_gen_fwd', action='store_true', default=False,
+                        help='accepted: the port always runs one generator forward '
+                             'per step, which outside end2end is the same computation')
+    parser.add_argument('--sp', type=int, default=1, help='not in the port yet (>1 raises)')
+    parser.add_argument('--fsdp', type=int, default=1, help='not in the port yet (>1 raises)')
+    parser.add_argument('--uint8_input', action='store_true', default=True,
+                        help='ship video batches as uint8, normalize on the device')
+    parser.add_argument('--no_uint8_input', dest='uint8_input', action='store_false')
+    parser.add_argument('--debug', action='store_true', default=False)
+    parser.add_argument('--debug_nans', action='store_true', default=False,
+                        help="autograd's anomaly detection")
+    parser.add_argument('--cuda', action='store_true', default=False, help=argparse.SUPPRESS)
+    parser.add_argument('--ngpu', type=int, default=1, help=argparse.SUPPRESS)
+    parser.add_argument('--opt_level', type=str, default='O2', help=argparse.SUPPRESS)
+    return parser
+
+
+def cli(argv=None):
+    main(build_parser().parse_args(argv))
+
+
+if __name__ == '__main__':
+    cli()

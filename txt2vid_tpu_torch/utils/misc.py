@@ -1,6 +1,18 @@
 """Small helpers (the port's own copies of txt2vid_tpu/utils/misc.py's)."""
 
+from pathlib import Path
+
 import torch
+
+
+def ensure_exists(path) -> None:
+    """mkdir -p (misc.py:69-71)."""
+    Path(path).mkdir(parents=True, exist_ok=True)
+
+
+def count_params(module: torch.nn.Module) -> int:
+    """Total number of scalars in a module's parameters (misc.py:41-43)."""
+    return sum(p.numel() for p in module.parameters())
 
 
 def gen_perm_device(n: int, p=None, generator: torch.Generator | None = None) -> torch.Tensor:
