@@ -5,22 +5,36 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN, so
-   the port's float32 runs in float32.
+   the port's float32 runs in float32 (the CLI phases turn both back on before
+   calling the CLI and check that its own setup turned them off).
 2. build: every CUDA kernel of the port, from txt2vid_tpu_torch/csrc, with nvcc
    (registers, shared memory and spills as ptxas reports them), and the count
    of tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in each
-   kernel's SASS, read with cuobjdump. Fails if K1, K2 or K3 has none.
+   kernel's SASS, read with cuobjdump, summed and per instantiation (dtype,
+   d, dv). Fails if an instantiation of K1, K2 or K3 has none.
 3. kernels: each kernel (K1 the attention forward, K2 and K3 its backward)
    against its plain PyTorch version on the card, at the main paths' shapes,
-   the parity shapes of tpu_checks.py and ragged shapes, in float32 and
-   bfloat16; K2 and K3 run twice at REPEAT_SHAPES must agree bit for bit.
+   the parity shapes of tpu_checks.py, the cond-128 generator's (8, 32) width
+   and ragged shapes, in float32 and bfloat16; K2 and K3 run twice at
+   REPEAT_SHAPES must agree bit for bit; K2's and K3's splits at the cond-128
+   shape. Then (phase float64) each kernel and its plain version against
+   float64 at F64_SHAPES, with unit-scale inputs and at F64_SCALES: at unit
+   scale the kernels' mean error toward zero must stay within BIAS_TOL of the
+   shape (the tensor cores' truncating adds, which the kernels keep to one
+   chunk at a time); at the other scales the drift is printed. At every
+   scale the backward from K1's own lse and o must stray from float64 by at
+   most OWN_RMS_TOL times the plain versions' path, in each gradient that
+   float32 holds.
    Then each kernel's time beside the plain version's and one PyTorch library
    call's that computes the same function (per call, and per call in a CUDA
    graph where it captures), its bounds and the resident warps per SM, at
-   the serving and training shapes and at the discriminator's four
-   training shapes (D_TRAIN_SHAPES, nested under "d_shapes"). K1's record
-   keeps the serving shape and the serve phase's launches; its training shape
-   is nested under "train_shape". K2 and K3 records hold the training shape.
+   the serving and training shapes, the cond-128 generator's shape (nested
+   under "cond128_shape"), the 64-px discriminator's four training shapes
+   (D_TRAIN_SHAPES, nested under "d_shapes") and the cond-128
+   discriminator's three (COND128_D_SHAPES, under "cond128_d_shapes"). K1's
+   record keeps the serving
+   shape and the serve phase's launches; its training shape is nested under
+   "train_shape". K2 and K3 records hold the training shape.
 4. serve: the caption->video service (txt2vid_tpu_torch.serve) at the width of
    the flagship conditional model, weights random from --seed and every
    attention gamma set to 1, answering 20 captions of mixed length in chunks of
@@ -59,11 +73,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    medians of GP and plain steps from the 8 alone), the peak memory, the
    checkpoint's bytes and the seconds of a synchronous save, and the EMA
    update's ms.
+7. cond128: the cond-128 flagship's float32 command line
+   (scripts/r9_session.sh's run_chunk f32: G 128 px, 32 frames, 1 channel,
+   additional_blocks [64, 32] with remat; D cond_head proj, down blocks
+   [4, 4, 4]; frame sizes 32/64/128, RSGAN, GP 1.0 every 4 steps, clip 100
+   split, EMA, batch 32) through `train.gan.main` in-process, for 3 epochs of
+   2 batches of packed clips the port writes (64 synthetic 32x128x128x1 clips,
+   pack_directory, the vocabulary from `python -m txt2vid_tpu_torch.data`)
+   read through the native frame-cache reader. No --sent_weights: the encoder
+   starts from the seed. Every step launches K1 14 and K2, K3 10 times (K1
+   once more for the recomputed up0), with finite losses; the attention
+   shapes (B, N, M, d, dv) of a step are the generator's (256, 4096, 1024, 8,
+   32) and the discriminator's three scales. Then one step with the kernels
+   against no_kernel() (as in cli),
+   the peak memory and launches of a GP and a plain step with remat in G, off,
+   and in G and D, 10 steps timed alone, and the last checkpoint served by
+   `txt2vid_tpu_torch.serve.main`, live and with --ema: K1 once per chunk of
+   8 at (256, 4096, 1024, 8, 32), the videos within 1e-4 (uint8 within 1) of
+   the same service under no_kernel().
+
+Each phase prints its seconds.
 
 With --baseline DIR (another checkout's root, e.g. the parent commit's
-`git archive` unpacked under build/), a phase compare after the kernels phase
-times that checkout's K1, K2 and K3, built from its own sources, beside this
-one's at the same shapes, in the order baseline, this, this, baseline.
+`git archive` unpacked under build/), that checkout's K1, K2 and K3 are built
+from its own sources; phase float64 reads their drift beside this one's, and
+a phase compare after it times them beside this one's at the same shapes, in
+the order baseline, this, this, baseline.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -87,8 +122,10 @@ import numpy as np
 import torch
 
 from txt2vid_tpu_torch import bench
+from txt2vid_tpu_torch import serve as serve_mod
 from txt2vid_tpu_torch.convert import jax_state_to_torch, torch_state_to_jax
 from txt2vid_tpu_torch.data import build_vocab, load_pickle
+from txt2vid_tpu_torch.data import packed
 from txt2vid_tpu_torch.data.synthetic import generate_examples, moving_digit_captions
 from txt2vid_tpu_torch.gan import ema as ema_mod
 from txt2vid_tpu_torch.gan.train_step import TrainStep
@@ -97,9 +134,9 @@ from txt2vid_tpu_torch.models.layers import Attention, Attention3d
 from txt2vid_tpu_torch.ops import _build
 from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
-    attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
-    attention_bwd_dq_reference, attention_delta, fused_attention,
-    fused_attention_reference, occupancy)
+    SUPPORTED_DV, attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
+    attention_bwd_dq_reference, attention_delta, dkv_splits, dq_splits, fused_attention,
+    fused_attention_reference, occupancy, sm_count)
 from txt2vid_tpu_torch.serve import GeneratorService
 from txt2vid_tpu_torch.train import gan as train_gan
 from txt2vid_tpu_torch.utils import checkpoint
@@ -119,12 +156,22 @@ SERVE_SHAPE = (128, 1024, 256, 4, 16)
 TRAIN_SHAPE = (40, 1024, 256, 4, 16)
 D_TRAIN_SHAPES = [(40, 16, 4, 16, 64), (20, 32, 8, 16, 64), (10, 64, 16, 16, 64),
                   (5, 256, 64, 16, 64)]
+# the cond-128 flagship generator's Attention(64) in up0: 16 videos x 16
+# frames of 64x64 after the subsample in training at batch 32, and 8 videos x
+# 32 frames when sampling or serving at batch 8; then a ragged shape at its width
+COND128_SHAPE = (256, 4096, 1024, 8, 32)
+# the cond-128 discriminator's Attention3d(128) after down0 at the three
+# scales: the subsample pyramid halves the videos and the frames per scale (32
+# x 32 frames of 32 px, 16 x 16 of 64 px, 8 x 8 of 128 px), and the stem's
+# and down0's (1, 2, 2) stride-2 pools quarter T, H and W
+COND128_D_SHAPES = [(32, 512, 128, 16, 64), (16, 1024, 256, 16, 64), (8, 2048, 512, 16, 64)]
 ATTENTION_SHAPES = [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES, (2, 1024, 256, 16, 64),
                     (4, 4096, 1024, 16, 64), (2, 1024, 256, 4, 16), (1, 64, 16, 16, 64),
-                    (3, 1000, 250, 4, 16), (2, 45, 15, 16, 64), (2, 100, 40, 16, 64)]
+                    (3, 1000, 250, 4, 16), (2, 45, 15, 16, 64), (2, 100, 40, 16, 64),
+                    COND128_SHAPE, (3, 1000, 250, 8, 32), *COND128_D_SHAPES]
 # K2 and K3 run twice on the same inputs must agree bit for bit here: the
-# generator's shape and the discriminator's largest (K2 splits its keys 4 ways)
-REPEAT_SHAPES = [TRAIN_SHAPE, (5, 256, 64, 16, 64)]
+# generators' shapes and the discriminator's largest (K2 splits its keys 4 ways)
+REPEAT_SHAPES = [TRAIN_SHAPE, (5, 256, 64, 16, 64), COND128_SHAPE]
 # float32: max|diff| <= 1e-4 * max(1, max|ref|), summation order only. bfloat16:
 # the same bf16 inputs through the plain f32 version; the kernel rounds o to
 # bf16 (8 bits of mantissa, 4e-3 relative), so o takes 1e-2, lse (f32) 1e-4.
@@ -133,11 +180,27 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-4)}
 # kernel rounding its f32 result to bf16 once
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NUM_CAPTIONS, BATCH = 20, 8
-# launches per train step, counted from the code: K1 1 (generator) + 8 (D
-# phase: real_cc and fake_cc at 4 scales; real_ic reuses real_cc's features)
-# + 4 (the updated D's real predictions) + 4 (the G phase's fake pass); K2 and
-# K3 8 (the D backward) + 4 (through D to the fakes) + 1 (generator)
-TRAIN_LAUNCHES = {"attention_fwd": 17, "attention_bwd_dq": 13, "attention_bwd_dkv": 13}
+
+
+def train_launches(scales, remat_g=False, remat_d=False):
+    """Attention launches per train step with one generator attention and
+    the discriminator's at each of `scales` scales, counted from the code. K1:
+    1 (generator) + 2 * scales (D phase: real_cc and fake_cc; real_ic reuses
+    real_cc's features) + scales (the updated D's real predictions, no
+    gradient) + scales (the G phase's fake pass). K2 and K3: 2 * scales (the
+    D backward) + scales (through D to the fakes) + 1 (generator). The GP's
+    forward and double backward take the plain attention, so a GP step
+    launches what a plain one does. remat recomputes each wrapped block that
+    carries an attention and is differentiated in the backward: K1 once more
+    for the generator's (remat_g) and for each of the 3 * scales
+    discriminator calls with a gradient (remat_d)."""
+    fwd = 1 + 4 * scales + (1 if remat_g else 0) + (3 * scales if remat_d else 0)
+    return {"attention_fwd": fwd, "attention_bwd_dq": 1 + 3 * scales,
+            "attention_bwd_dkv": 1 + 3 * scales}
+
+
+# the 64-px flagship: 4 scales, no remat (17, 13, 13)
+TRAIN_LAUNCHES = train_launches(4)
 TRAIN_STEPS = 3
 KERNELS = {"attention_fwd": fused_attention, "attention_bwd_dq": attention_bwd_dq,
            "attention_bwd_dkv": attention_bwd_dkv}
@@ -257,6 +320,21 @@ def bounds(shape, dtype, kernel):
     return out
 
 
+def tf32_on():
+    """Both TF32 switches on, as a process that never turned them off may have
+    them (torch's cuDNN default is on), so that a CLI call after this shows
+    that the CLI itself turns them off."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def check_tf32_off(phase):
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"phase {phase}: after main, matmul.allow_tf32={flags[0]} "
+          f"cudnn.allow_tf32={flags[1]} (both were on before it)")
+    check(flags == (False, False), f"{phase}: main left TF32 on: {flags}")
+
+
 def zero_counts():
     for k in KERNELS.values():
         k.launches = 0
@@ -284,12 +362,22 @@ def phase_build():
     counts in its SASS, summed over its instantiations."""
     seconds = _build.build_all()
     for name, log in _build.build_log.items():
+        entry = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase build: {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '\S*\d((?:attention_fwd|attention_bwd_dq|"
+                          r"attention_bwd_dkv|dkv_reduce)_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)ELi(\d+)E", line)
+            if m:
+                entry = (f"{m[1]}<{'float32' if m[2] == 'f' else 'bfloat16'}, d={m[3]}, "
+                         f"dv={m[4]}>")
+            elif "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"phase build: {entry}: {line.replace('ptxas info    :', '').strip()}")
     print(f"phase build: {sorted(_build.SOURCES)} built in {seconds:.2f} s")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     tc = {name: {"HMMA": 0, "HGMMA": 0} for name in KERNELS}
+    per_inst = {}       # (kernel, dtype, d, dv) -> counts
     for lib in _build.SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
@@ -297,22 +385,38 @@ def phase_build():
         for line in sass.splitlines():
             if "Function : " in line:
                 kernel = next((k for k in KERNELS if f"{k}_kernel" in line), None)
+                # the mangled template arguments <T, D, DV>
+                inst = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+                key = None if kernel is None or inst is None else (
+                    kernel, "float32" if inst[1] == "f" else "bfloat16",
+                    int(inst[2]), int(inst[3]))
+                if key is not None:
+                    per_inst[key] = {"HMMA": 0, "HGMMA": 0}
             elif kernel is not None:
                 for op in tc[kernel]:
-                    tc[kernel][op] += len(re.findall(rf"\b{op}\b", line))
+                    n = len(re.findall(rf"\b{op}\b", line))
+                    tc[kernel][op] += n
+                    if key is not None:
+                        per_inst[key][op] += n
     for name, counts in tc.items():
         print(f"phase build: {name} SASS tensor-core instructions {counts}")
-    check(all(sum(tc[k].values()) > 0 for k in TENSOR_CORE_KERNELS),
-          f"no tensor-core instruction in the SASS of {TENSOR_CORE_KERNELS}: {tc}")
+    for key, counts in sorted(per_inst.items()):
+        print(f"phase build: {key[0]}<{key[1]}, d={key[2]}, dv={key[3]}> SASS "
+              f"tensor-core instructions {counts}")
+    insts = [(k, dt, d, dv) for k in TENSOR_CORE_KERNELS for dt in ("float32", "bfloat16")
+             for d, dv in SUPPORTED_DV.items()]
+    check(all(sum(per_inst.get(i, {}).values()) > 0 for i in insts),
+          f"an instantiation of {TENSOR_CORE_KERNELS} has no tensor-core instruction "
+          f"in its SASS: {per_inst}")
     return tc
 
 
 def phase_attention(seed):
     """K1 against its plain version at every shape and dtype; times at the
-    serving, the training and the discriminator's shapes. Returns the
-    kernel's record for the JSON line (the serving shape's numbers, the
-    others nested)."""
-    serve_err = train_err = None
+    serving, the training, the cond-128 generator's and both discriminators'
+    shapes. Returns the kernel's record for the JSON line (the serving shape's
+    numbers, the others nested)."""
+    errs = {}
     for shape in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             theta, phi, g = attention_inputs(shape, dtype, seed)
@@ -331,20 +435,17 @@ def phase_attention(seed):
                   f"lse err {err_l:.3g} (tol {tol_lse * scale_l:.3g}) "
                   f"{'ok' if ok else 'DISAGREES'}")
             check(ok, f"attention_fwd disagrees with its plain version at {shape} {dtype}")
-            if shape == SERVE_SHAPE and dtype == torch.float32:
-                serve_err = err_o
-            if shape == TRAIN_SHAPE and dtype == torch.float32:
-                train_err = err_o
+            if dtype == torch.float32:
+                errs[shape] = err_o
 
-    record = time_forward(SERVE_SHAPE, seed)
-    record["max_abs_err"] = serve_err
-    train = time_forward(TRAIN_SHAPE, seed)
-    train["max_abs_err"] = train_err
+    record, train, cond = (dict(time_forward(shape, seed), max_abs_err=errs[shape])
+                           for shape in (SERVE_SHAPE, TRAIN_SHAPE, COND128_SHAPE))
     return {"name": "attention_fwd", "route": "cuda",
             "source": "txt2vid_tpu_torch/csrc/attention_fwd.cu",
             "replaces": "txt2vid_tpu/ops/pallas_attention.py:43",
-            "launches": None, **record, "train_shape": train,
-            "d_shapes": [time_forward(shape, seed) for shape in D_TRAIN_SHAPES]}
+            "launches": None, **record, "train_shape": train, "cond128_shape": cond,
+            "d_shapes": [time_forward(shape, seed) for shape in D_TRAIN_SHAPES],
+            "cond128_d_shapes": [time_forward(shape, seed) for shape in COND128_D_SHAPES]}
 
 
 def time_forward(shape, seed):
@@ -384,9 +485,10 @@ def bwd_inputs(shape, dtype, seed):
 
 def phase_attention_bwd(seed):
     """K2 and K3 against their plain versions at every shape and dtype, K3's
-    repeatability; times at the generator's training shape (the records) and
-    the discriminator's shapes (nested). Returns their records."""
-    train_err = {}
+    repeatability; times at the generator's training shape (the records), the
+    cond-128 generator's and both discriminators' shapes (nested). Returns
+    their records."""
+    errs_by_shape = {}
     for shape in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             args = bwd_inputs(shape, dtype, seed)
@@ -406,8 +508,8 @@ def phase_attention_bwd(seed):
                 f"{w} err {e:.3g} (tol {BWD_TOL[dtype] * sc:.3g})" for w, (e, sc) in errs.items())
                 + f" {'ok' if ok else 'DISAGREES'}")
             check(ok, f"attention_bwd disagrees with its plain version at {shape} {dtype}")
-            if shape == TRAIN_SHAPE and dtype == torch.float32:
-                train_err = {w: e for w, (e, _) in errs.items()}
+            if dtype == torch.float32:
+                errs_by_shape[shape] = {w: e for w, (e, _) in errs.items()}
 
     for shape in REPEAT_SHAPES:
         args = bwd_inputs(shape, torch.float32, seed)
@@ -420,11 +522,23 @@ def phase_attention_bwd(seed):
                   f"{name} is not repeatable bit for bit at {shape}")
             print(f"phase kernels: {name} at {shape} float32 repeats bit for bit")
 
+    b, n, m = COND128_SHAPE[:3]
+    sms = sm_count(0)
+    print(f"phase kernels: at {COND128_SHAPE} on {sms} SMs K2 splits each query tile's "
+          f"keys {dq_splits(b, n, m, sms)} way(s) over {b * -(-n // 64)} blocks, K3 cuts N "
+          f"into {dkv_splits(b, n, m, sms)[0]} split(s) over {b * -(-m // 64)} blocks")
     records = time_backward(TRAIN_SHAPE, seed)
+    cond = time_backward(COND128_SHAPE, seed)
     per_shape = [time_backward(shape, seed) for shape in D_TRAIN_SHAPES]
+    per_cond_shape = [time_backward(shape, seed) for shape in COND128_D_SHAPES]
     for i, r in enumerate(records):
-        r["max_abs_err"] = max(train_err[w] for w in BWD_OUTPUTS[r["name"]])
+        r["max_abs_err"] = max(errs_by_shape[TRAIN_SHAPE][w] for w in BWD_OUTPUTS[r["name"]])
+        r["cond128_shape"] = {k: v for k, v in cond[i].items()
+                              if k not in ("name", "route", "source", "replaces", "launches")}
+        r["cond128_shape"]["max_abs_err"] = max(errs_by_shape[COND128_SHAPE][w]
+                                                for w in BWD_OUTPUTS[r["name"]])
         r["d_shapes"] = [rs[i] for rs in per_shape]
+        r["cond128_d_shapes"] = [rs[i] for rs in per_cond_shape]
     return records
 
 
@@ -480,6 +594,123 @@ def time_backward(shape, seed):
     return records
 
 
+# (B, N, M, d, dv) of the float64 check: the cond-128 generator's N and M at
+# 8 batches (its float64 maps take 268 MB each), the 64-px training shape and
+# the cond-128 discriminator's largest scale
+F64_SHAPES = [(8, 4096, 1024, 8, 32), TRAIN_SHAPE, (8, 2048, 512, 16, 64)]
+# the kernels' mean error toward zero over the mean |float64| at unit-scale
+# inputs, per shape: above the largest reading of the kernels that add each
+# chunk's product with rounding, below the smallest of the kernels that kept
+# their sums in MMA fragments across the loop (PERF.md); the plain float32
+# versions sit near 1e-8
+BIAS_TOL = {F64_SHAPES[0]: 2e-6, TRAIN_SHAPE: 1e-6, F64_SHAPES[2]: 2e-6}
+# the backward from a side's own forward, as a train step runs it: the
+# kernels' RMS error against float64 at most OWN_RMS_TOL times the plain
+# versions', for each gradient that float32 holds, the plain path within
+# WELL_CONDITIONED (RMS over RMS) of float64. Where it does not (dtheta and
+# dphi at the generator's logit scale: one-hot rows leave dS = p (dP -
+# delta) as the difference of two rounded dot products) both paths' errors
+# are rounding noise, printed only. With lse * log2 e rounded before the
+# subtraction the kernels read up to 2.4x at unit scale, 2.5x to 8x at twice
+# it and 182x for dg at the generator's logit scale; with s - lse formed
+# first, 0.43x to 1.29x
+OWN_RMS_TOL = 2.0
+WELL_CONDITIONED = 1e-4
+# input scales: 1 is held to BIAS_TOL; the others are printed only. At 2 the
+# products' own truncating adds grow with the logits (at d = 16 past 2e-6, an
+# open fault). The last puts the logits' standard deviation where phase
+# cond128 finds it in a step at the seed's weights: about 7e3 in the
+# generator's up0, 0.3-0.36 in the discriminator
+F64_SCALES = {F64_SHAPES[0]: (1, 2, 50), TRAIN_SHAPE: (1, 2), F64_SHAPES[2]: (1, 2, 0.3)}
+
+
+def float64_attention(theta, phi, g, do):
+    """o, lse, dtheta, dphi, dg in float64 from float32 inputs."""
+    t, f, v, o_ = (x.double() for x in (theta, phi, g, do))
+    s = t @ f.transpose(1, 2)
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    o = p @ v
+    ds = p * (o_ @ v.transpose(1, 2) - (o_ * o).sum(-1)[..., None])
+    return o, lse, ds @ f, ds.transpose(1, 2) @ t, p.transpose(1, 2) @ o_
+
+
+def error_stats(ref, x):
+    """Max, RMS and mean-toward-zero error of x against float64 ref, each
+    over ref's max, RMS and mean |.|."""
+    d = x.double() - ref
+    return {"max": float(d.abs().max() / ref.abs().max()),
+            "rms": float(d.square().mean().sqrt() / ref.square().mean().sqrt()),
+            "bias": float((d * ref.sign()).mean() / ref.abs().mean())}
+
+
+def logit_std(theta, phi):
+    """The standard deviation of the first batch's logits theta . phi."""
+    with torch.no_grad():
+        return float((theta[0].float() @ phi[0].float().T).std())
+
+
+def phase_float64(seed, base=None):
+    """K1-K3, their plain versions and, given `base` (the --baseline
+    checkout's fused_attention module), the baseline's kernels against
+    float64 at F64_SCALES (the backward from the float64 forward's o and lse,
+    so that each kernel's own error shows): at unit scale the kernels must not
+    drift toward zero by more than BIAS_TOL. Then the backward from each
+    side's own forward, as a train step runs it (a kernel's logits rounded
+    otherwise than float64's then shift p against the float64 lse no more):
+    at every scale the kernels' RMS error at most OWN_RMS_TOL times the plain
+    versions' for each gradient float32 holds (WELL_CONDITIONED)."""
+    for shape in F64_SHAPES:
+        b, n, m, d, dv = shape
+        for scale in F64_SCALES[shape]:
+            theta, phi, g = (scale * x for x in attention_inputs(shape, torch.float32, seed))
+            gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+            do = torch.randn((b, n, dv), generator=gen, device="cuda")
+            refs = float64_attention(theta, phi, g, do)
+            lse, delta = refs[1].float(), attention_delta(refs[0].float(), do)
+            sides = [("kernels", fused_attention, attention_bwd_dq, attention_bwd_dkv),
+                     ("plain", fused_attention_reference, attention_bwd_dq_reference,
+                      attention_bwd_dkv_reference)]
+            if base is not None and base.SUPPORTED_DV.get(d) == dv:
+                sides.append(("baseline kernels", base.fused_attention, base.attention_bwd_dq,
+                              base.attention_bwd_dkv))
+            own_rms = {}
+            for name, fwd, dq, dkv in sides:
+                o, own_lse = fwd(theta, phi, g, return_lse=True)
+                outs = (o, own_lse,
+                        dq(theta, phi, g, do, lse, delta), *dkv(theta, phi, g, do, lse, delta))
+                own_delta = attention_delta(o, do)
+                own = (dq(theta, phi, g, do, own_lse, own_delta),
+                       *dkv(theta, phi, g, do, own_lse, own_delta))
+                torch.cuda.synchronize()
+                stats = {w: error_stats(r, x)
+                         for w, r, x in zip(("o", "lse", "dtheta", "dphi", "dg"), refs, outs)}
+                print(f"phase float64: {name} at {shape} float32, inputs x{scale} (logit std "
+                      f"{logit_std(theta, phi):.3g}) against float64: " + "; ".join(
+                          f"{w} max {st['max']:.3g} rms {st['rms']:.3g} bias {st['bias']:.3g}"
+                          for w, st in stats.items()))
+                own_stats = {w: error_stats(r, x)
+                             for w, r, x in zip(("dtheta", "dphi", "dg"), refs[2:], own)}
+                own_rms[name] = {w: st["rms"] for w, st in own_stats.items()}
+                print(f"phase float64: {name} at {shape}, inputs x{scale}, the backward from "
+                      f"its own forward: " + "; ".join(
+                          f"{w} rms {st['rms']:.3g} bias {st['bias']:.3g}"
+                          for w, st in own_stats.items()))
+                if name == "kernels" and scale == 1:
+                    worst = max(abs(st["bias"]) for st in stats.values())
+                    print(f"phase float64: kernels at {shape}: largest drift {worst:.3g} "
+                          f"(tol {BIAS_TOL[shape]:.3g})")
+                    check(worst <= BIAS_TOL[shape],
+                          f"the kernels drift toward zero at {shape}: {stats}")
+            held = [w for w, e in own_rms["plain"].items() if e <= WELL_CONDITIONED]
+            ratio = max(own_rms["kernels"][w] / own_rms["plain"][w] for w in held)
+            print(f"phase float64: at {shape}, inputs x{scale}, the kernels' backward from their "
+                  f"own forward at most {ratio:.3g}x the plain versions' RMS error in {held} "
+                  f"(tol {OWN_RMS_TOL})")
+            check(ratio <= OWN_RMS_TOL, f"the kernels' path strays from float64 at {shape} "
+                  f"x{scale}: {own_rms}")
+
+
 def load_baseline(root):
     """ops/fused_attention.py of the checkout at `root`, with its own _build:
     its kernels come from its own csrc/ and build into its own build/."""
@@ -493,19 +724,22 @@ def load_baseline(root):
     return mods["fused_attention"]
 
 
-def phase_compare(root, seed):
-    """K1, K2 and K3 of the checkout at `root` and of this one, float32, timed
-    in turns on the same inputs, each checked against this one's plain
-    version."""
-    base = load_baseline(root)
-    print(f"phase compare: baseline {root} built in {base._build.build_all():.2f} s")
+def phase_compare(base, seed):
+    """K1, K2 and K3 of the baseline checkout (its fused_attention module) and
+    of this one, float32, timed in turns on the same inputs, each checked
+    against this one's plain version."""
     this = sys.modules[fused_attention.__module__]
     for name, plain_fn, shapes in (
             ("fused_attention", fused_attention_reference,
-             [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES]),
-            ("attention_bwd_dq", attention_bwd_dq_reference, [TRAIN_SHAPE, *D_TRAIN_SHAPES]),
-            ("attention_bwd_dkv", attention_bwd_dkv_reference, [TRAIN_SHAPE, *D_TRAIN_SHAPES])):
+             [SERVE_SHAPE, TRAIN_SHAPE, *D_TRAIN_SHAPES, COND128_SHAPE, *COND128_D_SHAPES]),
+            ("attention_bwd_dq", attention_bwd_dq_reference,
+             [TRAIN_SHAPE, *D_TRAIN_SHAPES, COND128_SHAPE, *COND128_D_SHAPES]),
+            ("attention_bwd_dkv", attention_bwd_dkv_reference,
+             [TRAIN_SHAPE, *D_TRAIN_SHAPES, COND128_SHAPE, *COND128_D_SHAPES])):
         for shape in shapes:
+            if shape[3] not in base.SUPPORTED_DV:
+                print(f"phase compare: the baseline has no kernel at (d, dv) = {shape[3:]}")
+                continue
             args = (attention_inputs(shape, torch.float32, seed) if name == "fused_attention"
                     else bwd_inputs(shape, torch.float32, seed))
             plain = plain_fn(*args)
@@ -769,6 +1003,7 @@ def _phase_cli(root, seed):
     ema_mod.init_ema = recording_init_ema
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    tf32_on()
     zero_counts()
     t0 = time.perf_counter()
     try:
@@ -778,6 +1013,7 @@ def _phase_cli(root, seed):
     finally:
         ema_mod.init_ema = init_ema
     torch.cuda.synchronize()
+    check_tf32_off("cli")
     run_s = time.perf_counter() - t0
     totals = counts()
     peak = torch.cuda.max_memory_allocated()
@@ -821,9 +1057,11 @@ def _phase_cli(root, seed):
     check(any(n.startswith("fake_ema_samples_") for n in samples)
           and "real_samples.png" in samples, f"sample grids missing: {samples}")
 
+    tf32_on()
     with StepRecorder() as resumed:
         train_gan.main(train_gan.build_parser().parse_args(
             cli_argv(root, seed, "--epochs", "1", "--resume")))
+    check_tf32_off("cli")
     its = [r["iteration"] for r in resumed.steps]
     check(its == [n_steps, n_steps + 1] and resumed.step.step == n_steps + 2,
           f"--resume ran counters {its}, ended at {resumed.step.step}")
@@ -832,7 +1070,10 @@ def _phase_cli(root, seed):
     print(f"phase cli: --resume --epochs 1 ran iterations {n_steps + 1}-{n_steps + 2} "
           f"(launches {[r['launches'] for r in resumed.steps]})")
 
-    compare_kernel_and_plain_cli_step(resumed.step, resumed.batch)
+    step = resumed.step
+    check(step.config.gp_lambda > 0 and step.step % step.config.gp_every == 0,
+          "the resumed state's next step carries no GP")
+    compare_kernel_and_plain_cli_step(step, resumed.batch)
     time_cli_steps(resumed.step, resumed.batch)
     gen = resumed.step.gan.gen
     avg = ema_mod.init_ema(gen)
@@ -849,18 +1090,20 @@ def _attention64(theta, phi, g, use_kernel=True):
     return torch.softmax(theta @ phi.transpose(1, 2), dim=-1) @ g
 
 
-def compare_kernel_and_plain_cli_step(step, batch):
-    """One GP step with clipping from one state, every attention gamma 1:
-    with the kernels, under no_kernel() (twice: the run-to-run spread of the
-    same code) and in float64 with the plain attention (the reference)."""
-    check(step.config.gp_lambda > 0 and step.step % step.config.gp_every == 0,
-          "the resumed state's next step carries no GP")
+def compare_kernel_and_plain_cli_step(step, batch, phase="cli"):
+    """One step (with the CLI's GP and clipping where its schedule puts them)
+    from one state, every attention gamma 1: with the kernels, under
+    no_kernel() (twice: the run-to-run spread of the same code) and, only
+    where the kernels' step is further than 1e-3 of a leaf scale from
+    no_kernel()'s, in float64 with the plain attention (the reference; at the
+    cond-128 shape it holds float64 N x M maps of 8.6 GB)."""
     modules = {"G": step.gan.gen, "D": step.gan.discrims[0]}
     with torch.no_grad():
         for m in modules.values():
             for a in m.modules():
                 if isinstance(a, (Attention, Attention3d)):
                     a.gamma.fill_(1.0)
+    gp = step.config.gp_lambda > 0 and step.step % step.config.gp_every == 0
     start = checkpoint.to_host(torch_state_to_jax(step))
     draws = step.draw(batch["video"].shape[0], batch["video"].device)
     opts = {"G": step.opt_g, "D": step.opt_d}
@@ -896,8 +1139,7 @@ def compare_kernel_and_plain_cli_step(step, batch):
                 mod.float()
         return out
 
-    runs = {mode: run(mode) for mode in ("kernel", "plain", "plain again", "float64")}
-    jax_state_to_torch(start, step)
+    runs = {mode: run(mode) for mode in ("kernel", "plain", "plain again")}
     ref_m, ref = runs["plain"]
 
     def worst(mom, against):
@@ -915,30 +1157,35 @@ def compare_kernel_and_plain_cli_step(step, batch):
     loss_err = max(abs(runs["kernel"][0][k] - ref_m[k]) / abs(ref_m[k])
                    for k in ("loss_d", "loss_g"))
     kernel_vs_plain = worst(runs["kernel"][1], ref)
-    print(f"phase cli: kernels vs no_kernel(), one GP step with clipping from one state: "
-          f"{runs['kernel'][0]} vs {ref_m}; losses rel diff {loss_err:.3g} (tol 1e-4), Adam "
-          f"first moments max|diff| / leaf scale {kernel_vs_plain[0]:.3g} at "
-          f"{kernel_vs_plain[1]}")
-    f64 = runs["float64"][1]
-    vs64 = {}
-    for mode in ("kernel", "plain", "plain again"):
-        vs64[mode], where = worst(runs[mode][1], f64)
-        print(f"phase cli: {mode} vs the float64 step: Adam first moments max|diff| / leaf "
-              f"scale {vs64[mode]:.3g} at {where}")
+    print(f"phase {phase}: kernels vs no_kernel(), one {'GP' if gp else 'plain'} step with "
+          f"clipping from one state: {runs['kernel'][0]} vs {ref_m}; losses rel diff "
+          f"{loss_err:.3g} (tol 1e-4), Adam first moments max|diff| / leaf scale "
+          f"{kernel_vs_plain[0]:.3g} at {kernel_vs_plain[1]}")
     w, where = worst(runs["plain again"][1], ref)
-    print(f"phase cli: no_kernel() run twice: max|diff| / leaf scale {w:.3g} at {where}")
+    print(f"phase {phase}: no_kernel() run twice: max|diff| / leaf scale {w:.3g} at {where}")
+    vs64 = {}
+    if kernel_vs_plain[0] > 1e-3:
+        runs["float64"] = run("float64")
+        f64 = runs["float64"][1]
+        for mode in ("kernel", "plain", "plain again"):
+            vs64[mode], where = worst(runs[mode][1], f64)
+            print(f"phase {phase}: {mode} vs the float64 step: Adam first moments max|diff| / "
+                  f"leaf scale {vs64[mode]:.3g} at {where}")
+    else:
+        print(f"phase {phase}: within 1e-3 of no_kernel()'s step: no float64 step needed")
+    jax_state_to_torch(start, step)
     # at a trained state the plain float32 step itself can sit ~1e-3 of a leaf
     # scale from the float64 one (G's attention projections): there the
     # kernels pass when they are no further from float64 than 3x plain float32
     ok = kernel_vs_plain[0] <= 1e-3 or vs64["kernel"] <= 3 * vs64["plain"]
-    print(f"phase cli: tolerances: losses 1e-4 relative; Adam first moments 1e-3 of the "
+    print(f"phase {phase}: tolerances: losses 1e-4 relative; Adam first moments 1e-3 of the "
           f"leaf scale from no_kernel()'s, else no further from the float64 step than 3x "
-          f"no_kernel()'s ({vs64['kernel']:.3g} vs 3 x {vs64['plain']:.3g}): "
-          f"{'ok' if ok else 'DISAGREES'}")
-    check(loss_err <= 1e-4 and ok, "the CLI's GP step disagrees with no_kernel()")
+          f"no_kernel()'s" + (f" ({vs64['kernel']:.3g} vs 3 x {vs64['plain']:.3g})" if vs64
+                              else "") + f": {'ok' if ok else 'DISAGREES'}")
+    check(loss_err <= 1e-4 and ok, f"the {phase} step disagrees with no_kernel()")
 
 
-def time_cli_steps(step, batch, n=8):
+def time_cli_steps(step, batch, n=8, phase="cli"):
     """n steps of the CLI's TrainStep on one batch, each timed alone on the
     host clock between device synchronizations (no checkpoint or sampling
     beside them); returns the median ms of the GP and of the plain steps
@@ -954,10 +1201,252 @@ def time_cli_steps(step, batch, n=8):
         if i >= 2:
             times[gp].append(ms)
     gp_ms, plain_ms = statistics.median(times[True]), statistics.median(times[False])
-    print(f"phase cli: {n} steps alone, after 2 of warm-up: GP steps {times[True]} ms, plain "
+    print(f"phase {phase}: {n} steps alone, after 2 of warm-up: GP steps {times[True]} ms, plain "
           f"steps {times[False]} ms; medians {gp_ms:.2f} / {plain_ms:.2f} ms, GP overhead "
           f"{gp_ms / plain_ms - 1:.3f}")
     return gp_ms, plain_ms
+
+
+# the cond-128 flagship's float32 command line (scripts/r9_session.sh:38-40,
+# 60-78, run_chunk f32): its G and D specs verbatim (remat in G alone, as
+# there), its flags verbatim but for the data paths, --sent_weights (no
+# pretrained encoder here: the encoder starts from the seed), --epochs and
+# the periods; packed clips the port writes (128x128, 32 frames, 1 channel)
+COND128_G = ('{"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen", "args": '
+             '{"num_channels": 1, "num_frames": 32, "width": 128, "height": 128, '
+             '"additional_blocks": [64, 32], "fm_stride": 32, "remat": true}}')
+COND128_D = ('{"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim", "args": '
+             '{"num_channels": 1, "cond_head": "proj", "discrim_down_blocks": [4, 4, 4]}}')
+COND128_FRAME_SIZES, COND128_FRAMES, COND128_BATCH = (32, 64, 128), 32, 32
+COND128_CLIPS, COND128_EPOCHS, COND128_GP_EVERY = 64, 3, 4
+COND128_STEPS = COND128_EPOCHS * COND128_CLIPS // COND128_BATCH
+COND128_SCALES = len(COND128_FRAME_SIZES)
+COND128_SERVE_SAMPLES = 16
+
+
+def cond128_argv(root, seed):
+    data = json.dumps({"class": "txt2vid_tpu.data.packed.packed_dataset",
+                       "args": {"data": str(root / "videos.t2vc"), "num_frames": COND128_FRAMES}})
+    return ["--G", COND128_G, "--D", COND128_D, "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+            "--data", data, "--anno", str(root / "sent.pickle"),
+            "--vocab", str(root / "vocab.pickle"),
+            "--frame_sizes", *map(str, COND128_FRAME_SIZES), "--subsample_input",
+            "--num_channels", "1", "--D_loss", "txt2vid_tpu.gan.losses.RSGANLoss",
+            "--gp_lambda", "1.0", "--gp_every", str(COND128_GP_EVERY),
+            "--G_lr", "0.0002", "--D_lr", "0.0001", "--G_beta2", "0.999", "--D_beta2", "0.999",
+            "--clip_grad", "100", "--clip_grad_split", "--g_ema", "0.999",
+            "--batch_size", str(COND128_BATCH), "--epochs", str(COND128_EPOCHS),
+            "--seed", str(seed), "--log_period", "1",
+            "--save_model_period", str(COND128_STEPS),
+            "--save_example_period", str(COND128_STEPS), "--sample_batch_size", "8",
+            "--out", str(root / "out"), "--out_samples", str(root / "out" / "samples")]
+
+
+def phase_cond128(seed):
+    """The cond-128 flagship's command line on the card, then its checkpoint
+    served; returns its launch counts."""
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cond128_smoke_", dir=build))
+    try:
+        return _phase_cond128(root, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_cond128(root, seed):
+    t0 = time.perf_counter()
+    size = COND128_FRAME_SIZES[-1]
+    generate_examples(root / "videos", root / "sent.pickle", num_examples=COND128_CLIPS,
+                      frame_size=(size, size), num_frames=COND128_FRAMES, seed=seed,
+                      num_channels=1)
+    n_packed = len(packed.pack_directory(root / "videos", root / "videos.t2vc"))
+    subprocess.run([sys.executable, "-m", "txt2vid_tpu_torch.data", "--sents",
+                    str(root / "sent.pickle"), "--out", str(root / "vocab.pickle")],
+                   cwd=Path(__file__).resolve().parent, check=True, timeout=300,
+                   capture_output=True)
+    print(f"phase cond128: {n_packed} clips of {COND128_FRAMES}x{size}x{size}x1 packed into "
+          f"{(root / 'videos.t2vc').stat().st_size} bytes, a vocabulary of "
+          f"{len(load_pickle(root / 'vocab.pickle'))} words, in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    readers = []
+    reader_init = packed.PackedReader.__init__
+
+    def recording_init(self, *a, **k):
+        reader_init(self, *a, **k)
+        readers.append(self)
+
+    want = train_launches(COND128_SCALES, remat_g=True)
+    packed.PackedReader.__init__ = recording_init
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tf32_on()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with StepRecorder() as rec:
+            train_gan.main(train_gan.build_parser().parse_args(cond128_argv(root, seed)))
+    finally:
+        packed.PackedReader.__init__ = reader_init
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_tf32_off("cond128")
+    totals, peak = counts(), torch.cuda.max_memory_allocated()
+    check(readers and all(r.native for r in readers),
+          f"the packed dataset read {len(readers)} file(s), natively: "
+          f"{[r.native for r in readers]}")
+    print(f"phase cond128: the packed dataset reads through the native reader "
+          f"({packed.native_library_path().name})")
+    check(len(rec.steps) == COND128_STEPS,
+          f"{len(rec.steps)} steps run, {COND128_STEPS} expected")
+    for r in rec.steps:
+        print(f"phase cond128: step {r['iteration']} ({'GP' if r['gp'] else 'plain'}): "
+              f"{r['ms']:.2f} ms, {r['metrics']}, launches {r['launches']}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"cond128 step {r['iteration']}: non-finite {r['metrics']}")
+        check(r["launches"] == want, f"cond128 step {r['iteration']}: launches "
+              f"{r['launches']}, expected {want} (remat in G)")
+    check([r["gp"] for r in rec.steps]
+          == [i % COND128_GP_EVERY == 0 for i in range(COND128_STEPS)],
+          "the GP did not run on the steps gp_every gives")
+    step, batch = rec.step, rec.batch
+    gen, disc = step.gan.gen, step.gan.discrims[0]
+    check(gen.remat and not disc.remat, "G and D do not take the specs' remat")
+    sampled = totals["attention_fwd"] - sum(r["launches"]["attention_fwd"] for r in rec.steps)
+    latest = checkpoint.latest_checkpoint(root / "out")
+    check(latest is not None and Path(latest).name.startswith(f"iter_{COND128_STEPS}_"),
+          f"the last checkpoint is {latest}")
+    nbytes = Path(latest).stat().st_size
+    ema_bytes = Path(ema_mod.ema_path(latest)).stat().st_size
+    print(f"phase cond128: {COND128_STEPS} steps with the trainer in {run_s:.2f} s, "
+          f"launches per step (GP and plain alike) {want}, K1 {sampled} more in the "
+          f"sampling at batch 8 (live and EMA generators); peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); {Path(latest).name} {nbytes} bytes, its .ema "
+          f"{ema_bytes} bytes; G {sum(p.numel() for p in gen.parameters())}, D "
+          f"{sum(p.numel() for p in disc.parameters())} parameters")
+    check(sampled == 2, f"the sampling launched K1 {sampled} times, 2 expected")
+
+    compare_kernel_and_plain_cli_step(step, batch, phase="cond128")
+    cond128_memory(step, batch)
+    time_cli_steps(step, batch, n=10, phase="cond128")
+    serve = cond128_serve(root, latest, seed)
+    return {"launches": totals, "per_step": want, "serve_launches": serve}
+
+
+def cond128_memory(step, batch):
+    """Peak memory and launches of one GP and one plain step with remat off,
+    in G alone (the specs') and in G and D; each must fit and launch what the
+    code gives. Peak is the most allocated during the step; the state and the
+    batch are allocated before it. Also the attention shapes of a step and the
+    largest standard deviation of their logits (the scale phase float64
+    reads its drift at)."""
+    gen, disc = step.gan.gen, step.gan.discrims[0]
+    shapes, orig = {}, layers_mod.attention_core_auto
+
+    def recording(theta, phi, g, use_kernel=True):
+        shape = (*theta.shape, phi.shape[1], g.shape[2])
+        shapes[shape] = max(shapes.get(shape, 0.0), logit_std(theta, phi))
+        return orig(theta, phi, g, use_kernel)
+
+    for remat_g, remat_d in ((True, False), (False, False), (True, True)):
+        gen.remat, disc.remat = remat_g, remat_d
+        want = train_launches(COND128_SCALES, remat_g, remat_d)
+        for gp in (True, False):
+            while (step.step % step.config.gp_every == 0) != gp:
+                step.step += 1
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = counts()
+            layers_mod.attention_core_auto = recording
+            try:
+                loss = float(step(batch)["loss_d"])
+            finally:
+                layers_mod.attention_core_auto = orig
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in counts().items()}
+            peak = torch.cuda.max_memory_allocated()
+            print(f"phase cond128: remat G {remat_g} D {remat_d}, {'GP' if gp else 'plain'} "
+                  f"step: peak memory {peak} bytes ({peak / 2**30:.3f} GiB; "
+                  f"{(peak - base) / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB held "
+                  f"before it), launches {launched}")
+            check(math.isfinite(loss), f"remat step: loss_d {loss}")
+            check(launched == want, f"remat G {remat_g} D {remat_d}: launches {launched}, "
+                  f"expected {want}")
+    gen.remat, disc.remat = True, False
+    # (B, N, d) of theta with M and dv: the generator's up0 and the
+    # discriminator's three scales
+    stds = {(b, n, m, d, dv): std for (b, n, d, m, dv), std in shapes.items()}
+    print(f"phase cond128: attention shapes (B, N, M, d, dv) in a step and the largest "
+          f"standard deviation of their logits: "
+          + ", ".join(f"{s} {std:.3g}" for s, std in sorted(stds.items())))
+    check(sorted(stds) == sorted([COND128_SHAPE, *COND128_D_SHAPES]),
+          f"attention shapes {sorted(stds)}, expected {[COND128_SHAPE, *COND128_D_SHAPES]}")
+
+
+def cond128_serve(root, weights, seed):
+    """The run's last checkpoint through `python -m txt2vid_tpu_torch.serve`'s
+    main, live and --ema: K1 once per chunk, the videos against the same
+    service under no_kernel() (float 1e-4, uint8 within 1). Returns K1's
+    launches in the two runs."""
+    sentences = moving_digit_captions(COND128_SERVE_SAMPLES, seed)
+    chunks_n = -(-COND128_SERVE_SAMPLES // BATCH)
+    made = []
+    from_checkpoint = GeneratorService.from_checkpoint.__func__
+
+    def recording(cls, *a, **k):
+        made.append(from_checkpoint(cls, *a, **k))
+        return made[-1]
+
+    outs, launches = {}, 0
+    for ema in (False, True):
+        argv = ["--weights", weights, "--G", COND128_G, "--D", COND128_D,
+                "--sent", "txt2vid_tpu.models.txt.Seq2Seq", "--vocab", str(root / "vocab.pickle"),
+                "--frame_sizes", *map(str, COND128_FRAME_SIZES),
+                "--num_frames", str(COND128_FRAMES), "--num_channels", "1",
+                "--num_samples", str(COND128_SERVE_SAMPLES), "--sentences", *sentences,
+                "--seed", str(seed), "--out_samples", str(root / f"served_{ema}"),
+                *(["--ema"] if ema else [])]
+        GeneratorService.from_checkpoint = classmethod(recording)
+        try:
+            torch.cuda.synchronize()
+            fused_attention.launches = 0
+            t0 = time.perf_counter()
+            out = serve_mod.main(serve_mod.build_parser().parse_args(argv))
+            dt = time.perf_counter() - t0
+        finally:
+            GeneratorService.from_checkpoint = classmethod(from_checkpoint)
+        n = fused_attention.launches
+        launches += n
+        svc = made[-1]
+        size = COND128_FRAME_SIZES[-1]
+        check(out.dtype.name == "uint8"
+              and out.shape == (COND128_SERVE_SAMPLES, COND128_FRAMES, size, size, 1),
+              f"served {out.dtype} {out.shape}")
+        check(n == chunks_n, f"K1 launched {n} times for {chunks_n} chunks")
+        worst = 0.0
+        for i, (toks, lens) in enumerate(svc._chunks(sentences)[1]):
+            z = svc._draw_z(seed, i)
+            video = svc._video(toks, lens, z)
+            with no_kernel():
+                plain = svc._video(toks, lens, z)
+            check(bool(torch.isfinite(video).all()), f"chunk {i}: non-finite video")
+            worst = max(worst, float((video - plain).abs().max()))
+        with no_kernel():
+            plain_u8 = svc.generate(sentences=sentences, seed=seed)
+        u8_diff = int(abs(out.astype(int) - plain_u8.astype(int)).max())
+        print(f"phase cond128: served {Path(weights).name}{' --ema' if ema else ''}: uint8 "
+              f"{out.shape} (std {float(out.std()):.3f}) in {dt:.2f} s with the load, K1 "
+              f"{n} launches for {chunks_n} chunks at {COND128_SHAPE}; kernel vs "
+              f"no_kernel(): float max|diff| {worst:.3g} (tol 1e-4), uint8 max|diff| "
+              f"{u8_diff} (tol 1)")
+        check(worst <= 1e-4 and u8_diff <= 1, "the served checkpoint disagrees with "
+              "its plain version")
+        check(float(out.std()) > 0, "the served video is constant")
+        outs[ema] = out
+    check(not np.array_equal(outs[False], outs[True]), "--ema served the live generator")
+    return launches
 
 
 def main():
@@ -979,13 +1468,20 @@ def main():
     tc = timed("build", phase_build)
     records = timed("kernels", lambda: [phase_attention(args.seed),
                                         *phase_attention_bwd(args.seed)])
+    base = None
     if args.baseline:
-        timed("compare", phase_compare, args.baseline, args.seed)
+        base = load_baseline(args.baseline)
+        print(f"phase compare: baseline {args.baseline} built in "
+              f"{base._build.build_all():.2f} s")
+    timed("float64", phase_float64, args.seed, base)
+    if base is not None:
+        timed("compare", phase_compare, base, args.seed)
     for r in records:
         r["tc_instructions"] = tc[r["name"]]
     serve_launches, _ = timed("serve", phase_serve, args.seed)
     train = timed("train", phase_train, args.seed)
     cli = timed("cli", phase_cli, args.seed)
+    cond = timed("cond128", phase_cond128, args.seed)
     records[0]["launches"] = serve_launches
     for kernel, r in (("attention_fwd", records[0]["train_shape"]),
                       *((r["name"], r) for r in records[1:])):
@@ -993,6 +1489,9 @@ def main():
         r["launches_per_step"] = TRAIN_LAUNCHES[kernel]
     for r in records:
         r["cli_launches"] = cli[r["name"]]
+        r["cond128_launches"] = cond["launches"][r["name"]]
+        r["cond128_launches_per_step"] = cond["per_step"][r["name"]]
+    records[0]["cond128_serve_launches"] = cond["serve_launches"]
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,8 +4,11 @@ K3), checked on the CPU.
 - Three TF32 passes: a numpy emulation of the kernels' split (hi rounded to
   TF32 to nearest, lo = x - hi truncated to TF32) and products shows that three
   passes stay within the card tests' 1e-4 * max(1, max|ref|) of the plain
-  float32 versions at their logit scale (2 * randn, d = 16, dv = 64), and that
-  one pass does not.
+  float32 versions at their logit scale (2 * randn, d = 16, dv = 64, and the
+  cond-128 generator's d = 8, dv = 32), and that one pass does not.
+- (d, dv) = (8, 32): the plain versions of K1, K2 and K3 against the Pallas
+  kernels in interpret mode, float32 (2e-5 * scale) and bfloat16 inputs (as
+  below).
 - bfloat16: the plain versions of K1, K2 and K3, which round p and ds to bf16
   before their products as the TPU kernels do, against the JAX package's
   Pallas kernels in interpret mode with bf16 inputs and small blocks. o and
@@ -13,9 +16,13 @@ K3), checked on the CPU.
   relative to the running max there, the final one here); lse 1e-4 * scale
   (f32 logits of bf16 inputs summed in another order); K2's dtheta alone 1e-4
   * scale (the same roundings on both sides, f32 sums in another order).
+- Truncating accumulation: an emulation of the tensor cores' adds shows the
+  bias a sum kept in MMA fragments over a long loop takes, and that summing
+  each chunk from zero, as the kernels do, removes most of it.
 - K3's split of N across blocks covers every query row exactly once, K2's
   split of M among a query tile's warps every key of every tile exactly once,
-  and the kernels refuse data that does not start on a 16-byte boundary.
+  and the kernels refuse data that does not start on a 16-byte boundary; at
+  the cond-128 shape (256, 4096, 1024) neither splits on 114 or 132 SMs.
 """
 
 import jax.numpy as jnp
@@ -86,9 +93,8 @@ def _err(ref, got):
     return float(np.abs(ref - got).max()) / max(1.0, float(np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("direction", ["forward", "dq", "dkv"])
-def test_three_tf32_passes_keep_float32_accuracy_and_one_does_not(direction):
-    theta, phi, g, do = _card_inputs(20)
+def _check_tf32_passes(direction, d=16, dv=64):
+    theta, phi, g, do = _card_inputs(20, d=d, dv=dv)
     t = [torch.from_numpy(a) for a in (theta, phi, g, do)]
     o, lse = port_fused.fused_attention_reference(*t[:3], return_lse=True)
     if direction == "forward":
@@ -108,6 +114,59 @@ def test_three_tf32_passes_keep_float32_accuracy_and_one_does_not(direction):
     errs = {p: [_err(r, x) for r, x in zip(refs, outs)] for p, outs in got.items()}
     assert max(errs[3]) <= TOL, errs
     assert errs[1][0] > TOL, errs
+
+
+@pytest.mark.parametrize("direction", ["forward", "dq", "dkv"])
+def test_three_tf32_passes_keep_float32_accuracy_and_one_does_not(direction):
+    _check_tf32_passes(direction)
+
+
+@pytest.mark.parametrize("direction", ["forward", "dq", "dkv"])
+def test_three_tf32_passes_at_d8(direction):
+    # the cond-128 generator's Attention(64): d = 8 is one TF32 MMA step, no
+    # zero padding
+    _check_tf32_passes(direction, d=8, dv=32)
+
+
+def _round_toward_zero(x):
+    """float64 -> float32, truncated toward zero."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def test_a_chunk_summed_from_zero_keeps_truncating_adds_unbiased():
+    """The tensor cores add an MMA's products into its accumulator with
+    truncation toward zero. Emulated with exact products of 8 keys per MMA
+    step: a sum over 1024 keys kept in one MMA accumulator falls short of
+    float64 by about 3e-6 on average (K1-K3 on an H100 showed 5e-6 when they
+    summed so), while
+    summing each 16-key chunk from zero and adding it in float32 (rounded to
+    nearest), as the kernels do, leaves under a tenth of that bias."""
+    rng = np.random.default_rng(30)
+    n, m = 2048, 1024
+    p = np.exp(rng.standard_normal((n, m))).astype(np.float32)
+    g = rng.standard_normal(m).astype(np.float32)
+    ref = p.astype(np.float64) @ g.astype(np.float64)
+
+    def mma_sum(chunk):
+        acc = np.zeros(n, np.float32)
+        for c0 in range(0, m, chunk):
+            t = np.zeros(n, np.float32)
+            for k0 in range(c0, c0 + chunk, 8):
+                t = _round_toward_zero(t.astype(np.float64) + p[:, k0:k0 + 8].astype(np.float64)
+                                       @ g[k0:k0 + 8].astype(np.float64))
+            acc = t if chunk == m else acc + t
+        return acc
+
+    def bias(x):
+        return float(np.mean((x - ref) * np.sign(ref)) / np.mean(np.abs(ref)))
+
+    one, chunked = bias(mma_sum(m)), bias(mma_sum(16))
+    assert one < -1e-6
+    assert abs(chunked) < abs(one) / 10
+    assert abs(bias(p @ g)) < abs(one) / 10         # float32 rounded to nearest
 
 
 # (B, N, M, d, dv): both instantiations, and a shape no block divides evenly
@@ -168,6 +227,49 @@ def test_bf16_plain_dq_rounds_ds_as_pallas_does(shape):
                                                 port_fused.attention_delta(to, tdo))
     assert got.dtype == torch.bfloat16
     assert_close(np.asarray(ref.astype(jnp.float32)), got.float(), 1e-4, "dtheta")
+
+
+# (B, N, M, d, dv) at the cond-128 generator's width: tiles that divide, and
+# N, M that neither the kernels' tiles nor the Pallas blocks divide evenly
+WIDTH_8_32 = [(2, 64, 16, 8, 32), (2, 90, 22, 8, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", WIDTH_8_32)
+def test_width_8_32_plain_matches_pallas_interpret(shape, dtype):
+    """K1, K2 and K3's plain versions at (d, dv) = (8, 32) against the Pallas
+    kernels in interpret mode: float32 2e-5 * scale (summation order);
+    bfloat16 inputs 1e-2 * scale for o and the gradients, 1e-4 for lse."""
+    theta, phi, g, do = _card_inputs(23, *shape)
+    if dtype == "float32":
+        (jt, tt), (jp, tp), (jg, tg), (jdo, tdo) = (
+            (jnp.asarray(a), torch.from_numpy(a)) for a in (theta, phi, g, do))
+        tol = lse_tol = 2e-5
+    else:
+        (jt, tt), (jp, tp), (jg, tg), (jdo, tdo) = _bf16(theta, phi, g, do)
+        tol, lse_tol = 1e-2, 1e-4
+    o_ref, lse_ref = jax_fused_attention(jt, jp, jg, block_n=16, block_m=8, interpret=True,
+                                         return_lse=True)
+    o, lse = port_fused.fused_attention_reference(tt, tp, tg, return_lse=True)
+    assert o.dtype == getattr(torch, dtype)
+    assert_close(np.asarray(o_ref.astype(jnp.float32)), o.float(), tol, "o")
+    assert_close(np.asarray(lse_ref), lse, lse_tol, "lse")
+    refs = jax_fused_attention_bwd(jt, jp, jg, o_ref, lse_ref, jdo, block_n=16, block_m=8,
+                                   interpret=True)
+    to = torch.from_numpy(np.array(o_ref.astype(jnp.float32))).to(o.dtype)
+    got = port_fused.fused_attention_bwd_reference(tt, tp, tg, to,
+                                                   torch.from_numpy(np.array(lse_ref)), tdo)
+    for what, ref, x in zip(("dtheta", "dphi", "dg"), refs, got):
+        assert x.dtype == o.dtype, what
+        assert_close(np.asarray(ref.astype(jnp.float32)), x.float(), tol, what)
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+def test_splits_at_the_cond128_generator_shape(sms):
+    # (B, N, M) = (256, 4096, 1024): 16384 K2 blocks and 4096 K3 blocks fill
+    # an H100 (PCIe 114 SMs, SXM 132) without splitting
+    assert port_fused.dq_splits(256, 4096, 1024, sms) == 1
+    assert port_fused.dkv_splits(256, 4096, 1024, sms) == (1, 4096)
 
 
 @pytest.mark.parametrize("sms", [1, 114, 132])

@@ -179,6 +179,20 @@ def test_entry_point_needs_a_gpu_unless_asked(data, tmp_path):
             gan.cli(args)
 
 
+def test_setup_turns_tf32_off(monkeypatch):
+    """setup() holds float32 matmuls and convolutions to float32 whatever the
+    process had set (torch's cuDNN default is TF32), as bench.py and serve.py
+    do."""
+    from txt2vid_tpu_torch.train.setup import setup
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seed, device = setup(gan.build_parser().parse_args(
+        ["--device", "cpu", "--seed", "3", "--data", "d", "--G", "g", "--D", "d"]))
+    assert (seed, device.type) == (3, "cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
 @pytest.mark.parametrize("spec,cls", [
     ("txt2vid_tpu.models.tganv2_cond.MultiScaleGen", tganv2.MultiScaleGen),
     ("txt2vid.models.tganv2_cond.gen.MultiScaleGen", tganv2.MultiScaleGen),
@@ -197,15 +211,19 @@ def test_spec_names_resolve_to_the_port(spec, cls):
 
 def test_spec_args_carry_over():
     """use_pallas -> use_kernel, stem_impl dropped, init_method kept for
-    init_from_seed; dtype and remat raise naming themselves."""
+    init_from_seed, remat passed through to G and D; dtype raises naming
+    itself."""
     d = config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
-                              "args": {**D["args"], "use_pallas": False, "stem_impl": "conv"}},
+                              "args": {**D["args"], "use_pallas": False, "stem_impl": "conv",
+                                       "remat": True}},
                              init_method="ortho")
-    assert d.init_method == "ortho" and d.discrim.attn.use_kernel is False
-    for bad in ({"dtype": "bfloat16"}, {"remat": True}):
-        with pytest.raises(NotImplementedError, match=next(iter(bad))):
-            config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
-                                  "args": {**G["args"], **bad}})
+    assert d.init_method == "ortho" and d.discrim.attn.use_kernel is False and d.remat
+    g = config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+                              "args": {**G["args"], "remat": True}})
+    assert g.remat
+    with pytest.raises(NotImplementedError, match="dtype"):
+        config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+                              "args": {**G["args"], "dtype": "bfloat16"}})
     with pytest.raises(NotImplementedError, match="tcwyt"):
         config.create_object("txt2vid_tpu.models.tcwyt.Gen")
 

@@ -192,9 +192,10 @@ class TestDispatch:
             fused_attention(theta, phi, g)
 
     def test_supported_pairs_are_the_models(self):
-        # Attention(32) in the generator's up1 and Attention3d(128) in the
-        # discriminator: d = ch/8, dv = ch/2
-        assert SUPPORTED_DV == {32 // 8: 32 // 2, 128 // 8: 128 // 2}
+        # Attention(32) in the 64-px generator's up1, Attention(64) in the
+        # cond-128 generator's up0 and Attention3d(128) in the discriminator:
+        # d = ch/8, dv = ch/2
+        assert SUPPORTED_DV == {32 // 8: 32 // 2, 64 // 8: 64 // 2, 128 // 8: 128 // 2}
 
 
 class TestEntryPointsNeedCuda:

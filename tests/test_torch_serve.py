@@ -9,35 +9,59 @@ the LSTMs and the attention sum in other orders); uint8 equal, except a
 difference of 1 where the float lies within 1e-3 of a rounding boundary.
 """
 
+import json
 import os
 import pickle
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
-from test_torch_models import SMALL_GEN, jax_variables, pallas_interpret
+from test_torch_cli import D as CLI_D
+from test_torch_cli import G as CLI_G
+from test_torch_cli import S as CLI_S
+from test_torch_cli import argv as cli_argv
+from test_torch_cli import data  # noqa: F401  (the fixture)
+from test_torch_models import (SMALL_GEN, assert_close, jax_variables, pallas_interpret,
+                               random_variables)
+from txt2vid_tpu.config import create_object as jax_create_object
 from txt2vid_tpu.data import Vocab as JaxVocab
 from txt2vid_tpu.gan.cond_gan import CondGan as JaxCondGan
+from txt2vid_tpu.gan.train_step import TrainConfig as JaxTrainConfig
+from txt2vid_tpu.gan.train_step import init_state as jax_init_state
 from txt2vid_tpu.models import tganv2_cond as jax_tganv2_cond
 from txt2vid_tpu.models.txt import Seq2Seq as JaxSeq2Seq
 from txt2vid_tpu.serve import GeneratorService as JaxService
-from txt2vid_tpu_torch.convert import jax_to_torch_encoder, jax_to_torch_generator
+from txt2vid_tpu.utils import checkpoint as jax_checkpoint
+from txt2vid_tpu_torch import config, serve
+from txt2vid_tpu_torch.convert import (jax_to_torch_encoder, jax_to_torch_generator,
+                                       load_encoder_vars, torch_to_jax_discriminator,
+                                       torch_to_jax_encoder, torch_to_jax_generator)
 from txt2vid_tpu_torch.data import load_pickle
 from txt2vid_tpu_torch.gan.cond_gan import CondGan
 from txt2vid_tpu_torch.models import tganv2
 from txt2vid_tpu_torch.models.txt import Seq2Seq
-from txt2vid_tpu_torch.serve import GeneratorService, save_checkpoint
+from txt2vid_tpu_torch.serve import GeneratorService
+from txt2vid_tpu_torch.train import gan as train_gan
+from txt2vid_tpu_torch.utils import checkpoint, msgpack
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, MAX_LEN = 4, 10
 ENC = dict(embed_size=8, hidden_size=16, num_layers=2)
 GEN_CONFIG = {**SMALL_GEN, "with_non_local": True}
+# the same models as specs written for the JAX package
+SPEC_G = {"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+          "args": {k: v for k, v in SMALL_GEN.items() if k != "cond_dim"} | {"use_pallas": False}}
+SPEC_D = {"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
+          "args": {"discrim_down_blocks": [1, 1, 1], "num_channels": 3, "use_pallas": False}}
+SPEC_S = {"class": "txt2vid_tpu.models.txt.Seq2Seq", "args": ENC}
 WORDS = ["digit", "is", "moving", "left", "right", "up", "down", "and"] + \
     [str(i) for i in range(10)]
 # mixed lengths, all shorter than MAX_LEN once <start>/<end> are added
@@ -80,37 +104,43 @@ def slice_pair(tmp_path_factory):
 class TestSliceAgainstJax:
     def test_video_matches_jax_service(self, slice_pair):
         jax_service, port, _ = slice_pair
-        seed = 3
         with pallas_interpret():
-            ref_u8 = jax_service.generate(sentences=SENTENCES, seed=seed)
-        gan, state = jax_service.gan, jax_service.state
+            _assert_matches_jax_service(jax_service, port, seed=3)
 
-        def jax_video(toks, lens, key):
-            z = jax.random.normal(key, (BATCH, SMALL_GEN["latent_size"]))
-            cond = gan.encode(state.txt_vars, toks, lens)
-            return gan.generate(state.g_vars, z, cond=cond, train=False)[-1], z
 
-        floats, u8s = [], []
-        for i, (toks, lens) in enumerate(port._chunks(SENTENCES)[1]):
-            key = jax.random.fold_in(jax.random.key(seed), i)
-            with pallas_interpret():
-                ref, z = jax.jit(jax_video)(jnp.asarray(toks, jnp.int32),
-                                            jnp.asarray(lens, jnp.int32), key)
-            got = port._video(toks, lens, np.array(z))
-            scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
-            assert float(np.abs(np.asarray(ref) - got.numpy()).max()) <= 1e-4 * scale
-            floats.append(np.asarray(ref))
-            u8s.append(port._run(toks, lens, np.array(z)).numpy())
-        ref_f = np.concatenate(floats)[:len(SENTENCES)]
-        got_u8 = np.concatenate(u8s)[:len(SENTENCES)]
+def _assert_matches_jax_service(jax_service, port, seed):
+    """The port's service against the JAX service on SENTENCES: the float
+    video of each chunk at JAX's z (1e-4 of the scale) and the uint8 videos
+    (equal, or 1 apart within 1e-3 of a rounding boundary)."""
+    ref_u8 = jax_service.generate(sentences=SENTENCES, seed=seed)
+    gan, state = jax_service.gan, jax_service.state
+    latent = gan.gen.latent_size
 
-        assert got_u8.dtype == np.uint8 and got_u8.shape == ref_u8.shape == (5, 4, 32, 32, 3)
-        diff = got_u8.astype(np.int16) - ref_u8.astype(np.int16)
-        scaled = (ref_f.astype(np.float64) + 1.0) * 127.5
-        near_boundary = np.abs(scaled - np.round(scaled)) <= 1e-3 * 127.5
-        assert np.all((diff == 0) | ((np.abs(diff) == 1) & near_boundary))
-        # the video is not constant: the comparison above saw real content
-        assert ref_u8.std() > 5
+    def jax_video(toks, lens, key):
+        z = jax.random.normal(key, (BATCH, latent))
+        cond = gan.encode(state.txt_vars, toks, lens)
+        return gan.generate(state.g_vars, z, cond=cond, train=False)[-1], z
+
+    floats, u8s = [], []
+    for i, (toks, lens) in enumerate(port._chunks(SENTENCES)[1]):
+        key = jax.random.fold_in(jax.random.key(seed), i)
+        ref, z = jax.jit(jax_video)(jnp.asarray(toks, jnp.int32),
+                                    jnp.asarray(lens, jnp.int32), key)
+        got = port._video(toks, lens, np.array(z))
+        scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
+        assert float(np.abs(np.asarray(ref) - got.numpy()).max()) <= 1e-4 * scale
+        floats.append(np.asarray(ref))
+        u8s.append(port._run(toks, lens, np.array(z)).numpy())
+    ref_f = np.concatenate(floats)[:len(SENTENCES)]
+    got_u8 = np.concatenate(u8s)[:len(SENTENCES)]
+
+    assert got_u8.dtype == np.uint8 and got_u8.shape == ref_u8.shape == (5, 4, 32, 32, 3)
+    diff = got_u8.astype(np.int16) - ref_u8.astype(np.int16)
+    scaled = (ref_f.astype(np.float64) + 1.0) * 127.5
+    near_boundary = np.abs(scaled - np.round(scaled)) <= 1e-3 * 127.5
+    assert np.all((diff == 0) | ((np.abs(diff) == 1) & near_boundary))
+    # the video is not constant: the comparison above saw real content
+    assert ref_u8.std() > 5
 
 
 class TestPortService:
@@ -139,22 +169,38 @@ class TestPortService:
         assert port.generate(num=3, seed=1).shape == (3, 4, 32, 32, 3)
 
     def test_checkpoint_round_trip(self, slice_pair, tmp_path):
+        """The service's models written as a training checkpoint (the train
+        state's g_vars, d_vars and txt_vars, as the trainer writes them) and
+        served from it give the same videos."""
         _, port, vocab_path = slice_pair
-        path = str(tmp_path / "serve.pt")
-        save_checkpoint(path, GEN_CONFIG, port.gan.gen.state_dict(),
-                        {"vocab_size": len(port.vocab), **ENC},
-                        port.gan.cond_encoder.state_dict())
-        loaded = GeneratorService.from_checkpoint(path, vocab_path=vocab_path,
-                                                  batch_size=BATCH,
-                                                  max_caption_len=MAX_LEN, device="cpu")
+        disc = tganv2.MultiScaleDiscrim(discrim_down_blocks=(1, 1, 1), cond_dim=16)
+        state = {"step": np.array(3, np.int32),
+                 "g_vars": dict(zip(("params", "batch_stats"),
+                                    torch_to_jax_generator(port.gan.gen.state_dict()))),
+                 "d_vars": {"0": {"params": torch_to_jax_discriminator(disc.state_dict())}},
+                 "txt_vars": {"params": torch_to_jax_encoder(
+                     port.gan.cond_encoder.state_dict())}}
+        path = tmp_path / "iter_3_lossG_1.0000_lossD_1.0000"
+        checkpoint.save_state(state, path)
+        loaded = GeneratorService.from_checkpoint(
+            str(path), SPEC_G, [SPEC_D], sent=SPEC_S, vocab_path=vocab_path,
+            frame_sizes=(8, 16, 32), num_frames=4, num_channels=3, batch_size=BATCH,
+            max_caption_len=MAX_LEN, device="cpu")
         np.testing.assert_array_equal(loaded.generate(sentences=SENTENCES, seed=2),
                                       port.generate(sentences=SENTENCES, seed=2))
+        with pytest.raises(ValueError, match="renders"):
+            GeneratorService.from_checkpoint(str(path), SPEC_G, [SPEC_D], sent=SPEC_S,
+                                             vocab_path=vocab_path, frame_sizes=(16, 64),
+                                             num_frames=4, num_channels=3, device="cpu")
+        with pytest.raises(FileNotFoundError, match=".ema"):
+            GeneratorService.from_checkpoint(str(path), SPEC_G, [SPEC_D], sent=SPEC_S,
+                                             vocab_path=vocab_path, frame_sizes=(8, 16, 32),
+                                             num_frames=4, num_channels=3, ema=True,
+                                             device="cpu")
 
     def test_cli_bench(self, monkeypatch, capsys):
         """The CLI's --bench path, with the flagship swapped for the small model."""
-        import json
         from functools import partial
-        from txt2vid_tpu_torch import serve
         monkeypatch.setattr(serve.tganv2_cond, "MultiScaleGen",
                             partial(tganv2.MultiScaleGen, **GEN_CONFIG))
         monkeypatch.setattr(serve, "Seq2Seq", partial(Seq2Seq, **ENC))
@@ -162,6 +208,110 @@ class TestPortService:
         line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert line["metric"] == "serve_videos_per_sec" and line["value"] > 0
         assert line["shape"] == [4, 32, 32, 3] and line["cond"] is True
+
+    @pytest.mark.parametrize("flags,what", [
+        (["--bf16"], "--bf16"), (["--format", "gif"], "--format gif"),
+        (["--format", "mp4"], "--format mp4")])
+    def test_cli_flags_not_in_the_port_raise(self, flags, what):
+        with pytest.raises(NotImplementedError, match=what):
+            serve.cli(["--device", "cpu", *flags])
+        with pytest.raises(ValueError, match="--G and --D"):
+            serve.cli(["--device", "cpu", "--weights", "iter_1"])
+
+
+def _reference_video(tree, ema_tree, vocab, toks, lens, z):
+    """The eval-mode generator and encoder of a checkpoint tree, loaded by
+    hand (the EMA parameters over the live ones when given), at a pinned z."""
+    gen = config.create_object(CLI_G, cond_dim=16).eval()
+    gen.load_state_dict(jax_to_torch_generator(tree["g_vars"]["params"],
+                                               tree["g_vars"]["batch_stats"]))
+    if ema_tree is not None:
+        gen.load_state_dict(jax_to_torch_generator(ema_tree), strict=False)
+    enc = config.create_object(CLI_S, vocab_size=len(vocab)).eval()
+    with torch.no_grad():
+        load_encoder_vars(enc, tree["txt_vars"])
+        cond = enc.encode(torch.as_tensor(toks), torch.as_tensor(lens))[2]
+        return gen(torch.as_tensor(z), cond=cond)[-1]
+
+
+@pytest.fixture(scope="module")
+def trained_run(data, tmp_path_factory):
+    """A checkpoint and its .ema that the port's training CLI wrote
+    (--device cpu --g_ema 0.999, one epoch of 4 steps)."""
+    out = tmp_path_factory.mktemp("served_run")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train_gan.cli(cli_argv(data, out, "--epochs", "1"))
+    finally:
+        torch.set_num_threads(n)
+    return checkpoint.latest_checkpoint(out)
+
+
+class TestServesTrainingCheckpoints:
+    @pytest.mark.parametrize("ema", [False, True], ids=["live", "ema"])
+    def test_a_checkpoint_the_trainer_wrote(self, trained_run, data, tmp_path, ema):
+        assert Path(trained_run).name.startswith("iter_4_")
+        argv = ["--device", "cpu", "--weights", trained_run, "--G", json.dumps(CLI_G),
+                "--D", json.dumps(CLI_D), "--sent", json.dumps(CLI_S),
+                "--vocab", str(data / "vocab.pickle"), "--frame_sizes", "8", "16",
+                "--num_frames", "4", "--num_channels", "3", "--batch_size", "2",
+                "--num_samples", "3", "--out_samples", str(tmp_path)]
+        made = []
+        orig = GeneratorService.from_checkpoint.__func__
+
+        def recording(cls, *a, **k):
+            made.append(orig(cls, *a, **k))
+            return made[-1]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(GeneratorService, "from_checkpoint", classmethod(recording))
+            out = serve.cli(argv + (["--ema"] if ema else []))
+        assert out.shape == (3, 4, 16, 16, 3) and out.dtype == np.uint8
+        assert sorted(p.name for p in tmp_path.iterdir()) == [f"serve_{i}.png" for i in range(3)]
+        assert (tmp_path / "serve_0.png").read_bytes().startswith(b"\x89PNG")
+        svc = made[0]
+        with open(trained_run, "rb") as f:
+            tree = msgpack.unpackb(f.read())
+        with open(trained_run + ".ema", "rb") as f:
+            ema_tree = msgpack.unpackb(f.read())
+        toks, lens = svc._chunks(SENTENCES)[1][0]
+        z = np.random.default_rng(5).standard_normal((2, 16)).astype(np.float32)
+        got = svc._video(toks, lens, z)
+        want = _reference_video(tree, ema_tree if ema else None, svc.vocab, toks, lens, z)
+        other = _reference_video(tree, None if ema else ema_tree, svc.vocab, toks, lens, z)
+        assert_close(want.numpy(), got, 1e-6, "video")
+        # the live and the averaged generators differ, so the check tells them apart
+        assert float((want - other).abs().max()) > 1e-3
+
+    def test_a_jax_written_checkpoint(self, slice_pair, tmp_path):
+        """A JAX init_state file, its generator and encoder variables
+        randomised (the init's zero gammas and unit statistics render a
+        constant video), served by JAX's GeneratorService.from_checkpoint and
+        by the port's."""
+        _, _, vocab_path = slice_pair
+        vocab = load_pickle(vocab_path)
+        txt = jax_create_object(SPEC_S, vocab_size=len(vocab))
+        gan = JaxCondGan(gen=jax_create_object(SPEC_G, cond_dim=16),
+                         discrims=[jax_create_object(SPEC_D, cond_dim=16)], cond_encoder=txt)
+        rng = np.random.default_rng(6)
+        batch = {"video": jnp.asarray(rng.uniform(-1, 1, (BATCH, 4, 32, 32, 3)), jnp.float32),
+                 "captions": jnp.ones((BATCH, MAX_LEN), jnp.int32),
+                 "lengths": jnp.full((BATCH,), MAX_LEN, jnp.int32)}
+        opt = optax.adam(1e-4)
+        state = jax_init_state(gan, jax.random.key(7), batch, opt, opt,
+                               JaxTrainConfig(frame_sizes=(8, 16, 32), latent_size=16))
+        rng = np.random.default_rng(6)
+        state = state.replace(
+            g_vars=jax.tree_util.tree_map(jnp.asarray, random_variables(state.g_vars, rng)),
+            txt_vars=jax.tree_util.tree_map(jnp.asarray, random_variables(state.txt_vars, rng)))
+        path = str(tmp_path / "iter_0_lossG_0.0000_lossD_0.0000")
+        jax_checkpoint.save_state(state, path)
+        kw = dict(sent=SPEC_S, vocab_path=vocab_path, frame_sizes=(8, 16, 32), num_frames=4,
+                  num_channels=3, batch_size=BATCH, max_caption_len=MAX_LEN)
+        jax_service = JaxService.from_checkpoint(path, SPEC_G, [SPEC_D], **kw)
+        port = GeneratorService.from_checkpoint(path, SPEC_G, [SPEC_D], device="cpu", **kw)
+        _assert_matches_jax_service(jax_service, port, seed=4)
 
 
 def _run_python(code):
@@ -200,7 +350,7 @@ class TestStandsAlone:
         res = _run_python(code)
         assert res.returncode == 0, res.stderr
         names = set(res.stdout.split())
-        assert len(names) >= 37
+        assert len(names) >= 38
         # the training slice's modules, the port's bench included, and the
         # training CLI's: trainer, EMA, checkpoints and their codec, config,
         # setup, data
@@ -209,4 +359,4 @@ class TestStandsAlone:
             "ops.subsample", "utils.misc", "gan.trainer", "gan.ema", "train.gan",
             "train.setup", "config", "utils.checkpoint", "utils.msgpack", "utils.writer",
             "utils.logging", "utils.metrics", "utils.stopwatch", "data.synthetic",
-            "data.__main__")} <= names
+            "data.__main__", "data.packed", "serve")} <= names

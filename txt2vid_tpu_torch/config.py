@@ -9,10 +9,10 @@ package's alias table) resolve to the port's counterparts
 with only the module name changed.
 
 Model args carry over: `use_pallas` becomes `use_kernel` (None -> True),
-`init_method` is kept on the object for ops.initializers.init_from_seed, and
-`stem_impl` is accepted and dropped (the port has only the conv stem, which
-holds the same parameters). `dtype` other than None and `remat: true` raise
-NotImplementedError naming the arg.
+`init_method` is kept on the object for ops.initializers.init_from_seed,
+`remat` passes through (models/tganv2.py) and `stem_impl` is accepted and
+dropped (the port has only the conv stem, which holds the same parameters).
+`dtype` other than None raises NotImplementedError naming the arg.
 """
 
 import importlib
@@ -75,10 +75,7 @@ def _carry_over_args(args: dict) -> tuple[dict, str | None]:
     if args.get("dtype") is not None:
         raise NotImplementedError(f"model arg dtype={args['dtype']!r}: bf16 compute comes "
                                   "in a later slice of the port")
-    if args.get("remat"):
-        raise NotImplementedError("model arg remat=true comes in a later slice of the port")
     args.pop("dtype", None)
-    args.pop("remat", None)
     args.pop("stem_impl", None)
     if "use_pallas" in args:
         use = args.pop("use_pallas")

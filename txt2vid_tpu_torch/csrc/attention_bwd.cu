@@ -26,13 +26,13 @@
 // attention_fwd.cu).
 //
 // K2: a block is 4 warps; a warp owns 16 query rows, holding their theta
-// fragments (A of S = theta phi^T), do fragments (A of dP = do g^T), lse log2 e
+// fragments (A of S = theta phi^T), do fragments (A of dP = do g^T), lse
 // and delta in registers for the whole key loop, as K1 does. Tiles of 64 keys
 // of phi and g stream through a two-stage cp.async ring in shared memory; one
 // staged copy of phi is the B operand of S and, in the permuted K order of
 // from_acc, of dtheta += dS phi; g's tile is read as g^T. For each 16 keys,
 // in registers:
-//   S  = theta phi^T                      P = exp2(S log2 e - lse log2 e)
+//   S  = theta phi^T                      P = exp2((S - lse) log2 e)
 //   dP = do g^T                           dS = P * (dP - delta)
 //   dtheta += dS phi
 // dS feeds its product as the A operand straight from the accumulators
@@ -52,7 +52,7 @@
 // and delta stream through a two-stage cp.async ring in shared memory; rows
 // past N are zero-filled, which makes their terms exactly zero. For each 16
 // queries of a tile, in registers:
-//   S^T  = phi theta^T                    P^T = exp2(S^T log2 e - lse log2 e)
+//   S^T  = phi theta^T                    P^T = exp2((S^T - lse) log2 e)
 //   dg  += P^T do                         dP^T = g do^T
 //   dS^T = P^T * (dP^T - delta)           dphi += dS^T theta
 // P^T and dS^T feed their products as A operands straight from the
@@ -63,6 +63,11 @@
 // (gridDim.z) from the device's SM count: each writes f32 partial sums to a
 // scratch buffer and a second pass adds them in a fixed order. No atomics,
 // so results repeat bit for bit.
+//
+// S - lse is formed before the scaling by log2 e, as the TPU kernels' exp(s -
+// lse) is: at logits of thousands a rounded lse * log2 e would put p a part
+// in a thousand off where the forward had it (the top key's 1 of a one-hot
+// row), and dg with it.
 
 #include "tc_mma.cuh"
 
@@ -82,6 +87,36 @@ constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr int kKeys = 16 * kDkvWarps;  // K3: key rows per block, 16 per warp
 constexpr int kTileN = 64;       // K3: query rows of theta/do/lse/delta per stage
 constexpr int kChunkN = 16;      // K3: query rows per pass through the products
+
+// acc += sum over ks < KS of a[ks] b(ks), the KS MMA steps of one 16-row
+// chunk summed from zero and added to acc with a float add. The tensor cores
+// add into their accumulator with truncation, not rounding to nearest, so a
+// sum kept in MMA fragments across the whole key (K2) or query (K3) loop
+// drifts toward zero: over 1024 keys or 4096 queries the gradients came out
+// about 5e-6 (relative) short of float64 on average on an H100, where the
+// plain float32 versions are unbiased. A float add per chunk rounds to
+// nearest.
+template <typename Tr, int KS, typename B>
+__device__ __forceinline__ void add_chunk(float acc[4], const typename Tr::A (&a)[KS], B b) {
+  float t[4] = {};
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) Tr::mma(t, a[ks], b(ks));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// acc += a b, one MMA step summed from zero and added with a float add: dP =
+// do g^T runs DV / 8 steps deep, and at dv = 64 summing them in one
+// accumulator left dtheta and dphi 1.7e-6 short of float64 on an H100, 1.2e-6
+// so (the rest comes from S = theta phi^T, two steps deep at d = 16)
+template <typename Tr>
+__device__ __forceinline__ void add_product(float acc[4], const typename Tr::A& a,
+                                            const typename Tr::B& b) {
+  float t[4] = {};
+  Tr::mma(t, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
 
 // Warp w of a block is slot w % splits of query tile w / splits; the block
 // holds kDqWarps / splits tiles of 16 rows.
@@ -128,11 +163,11 @@ attention_bwd_dq_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     }, ks * Tr::K, r, c);
   // rows r and r + 8 of the warp's 16; a row past N (zeros, lse and delta 0)
   // gets p = 1 against dP = 0 and delta = 0, so dS = 0
-  float lse2[2], dl[2];
+  float lr[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r + 8 * i;
-    lse2[i] = row < n ? lse[(size_t)b * n + row] * kLog2e : 0.f;
+    lr[i] = row < n ? lse[(size_t)b * n + row] : 0.f;
     dl[i] = row < n ? delta[(size_t)b * n + row] : 0.f;
   }
 
@@ -177,7 +212,7 @@ attention_bwd_dq_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool live = k0 + 8 * j + 2 * c + (e & 1) < valid;
-          p[j][e] = live ? exp2_approx(fmaf(p[j][e], kLog2e, -lse2[e / 2])) : 0.f;
+          p[j][e] = live ? exp2_approx((p[j][e] - lr[e / 2]) * kLog2e) : 0.f;
         }
       }
       // dS = P * (do g^T - delta), delta by row
@@ -187,22 +222,24 @@ attention_bwd_dq_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
         ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < KV; ++ks)
-          Tr::mma(ds[j], da[ks], Tr::load_b([&](int col, int key) {
+          add_product<Tr>(ds[j], da[ks], Tr::load_b([&](int col, int key) {
             return to_f32(sg[key * SV + col]);
           }, ks * Tr::K, 8 * j, r, c));
 #pragma unroll
         for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dl[e / 2]);
       }
-      // dtheta += dS phi
+      // dtheta += dS phi, the chunk's product summed from zero and added
+      // rounding to nearest (see add_chunk)
+      typename Tr::A a[KC];
 #pragma unroll
-      for (int ks = 0; ks < KC; ++ks) {
-        const typename Tr::A a = Tr::from_acc(ds, ks);
+      for (int ks = 0; ks < KC; ++ks) a[ks] = Tr::from_acc(ds, ks);
 #pragma unroll
-        for (int v = 0; v < ND; ++v)
-          Tr::mma(acc[v], a, Tr::load_b_perm([&](int key, int k) {
+      for (int v = 0; v < ND; ++v)
+        add_chunk<Tr, KC>(acc[v], a, [&](int ks) {
+          return Tr::load_b_perm([&](int key, int k) {
             return k < D ? to_f32(sp[key * SD + k]) : 0.f;
-          }, ks * Tr::K, 8 * v, r, c));
-      }
+          }, ks * Tr::K, 8 * v, r, c);
+        });
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -335,18 +372,21 @@ attention_bwd_dkv_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int q = q0 + 8 * j + 2 * c + (e & 1);
-          p[j][e] = live[e / 2] ? exp2_approx(fmaf(p[j][e], kLog2e, -sl[q] * kLog2e)) : 0.f;
+          p[j][e] = live[e / 2] ? exp2_approx((p[j][e] - sl[q]) * kLog2e) : 0.f;
         }
       }
-      // dg += P^T do
+      // dg += P^T do (add_chunk)
+      {
+        typename Tr::A pa[KN];
 #pragma unroll
-      for (int ks = 0; ks < KN; ++ks) {
-        const typename Tr::A pa = Tr::from_acc(p, ks);
+        for (int ks = 0; ks < KN; ++ks) pa[ks] = Tr::from_acc(p, ks);
 #pragma unroll
         for (int v = 0; v < NV; ++v)
-          Tr::mma(dgv[v], pa, Tr::load_b_perm([&](int q, int col) {
-            return to_f32(sdo[q * SV + col]);
-          }, q0 + ks * Tr::K, 8 * v, r, c));
+          add_chunk<Tr, KN>(dgv[v], pa, [&](int ks) {
+            return Tr::load_b_perm([&](int q, int col) {
+              return to_f32(sdo[q * SV + col]);
+            }, q0 + ks * Tr::K, 8 * v, r, c);
+          });
       }
       // dS^T = P^T * (g do^T - delta), delta by column
       float ds[NQ][4];
@@ -355,23 +395,24 @@ attention_bwd_dkv_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
         ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
 #pragma unroll
         for (int ks = 0; ks < KV; ++ks)
-          Tr::mma(ds[j], ga[ks], Tr::load_b([&](int col, int q) {
+          add_product<Tr>(ds[j], ga[ks], Tr::load_b([&](int col, int q) {
             return to_f32(sdo[q * SV + col]);
           }, ks * Tr::K, q0 + 8 * j, r, c));
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           ds[j][e] = p[j][e] * (ds[j][e] - sd[q0 + 8 * j + 2 * c + (e & 1)]);
       }
-      // dphi += dS^T theta
+      // dphi += dS^T theta (add_chunk)
+      typename Tr::A da[KN];
 #pragma unroll
-      for (int ks = 0; ks < KN; ++ks) {
-        const typename Tr::A da = Tr::from_acc(ds, ks);
+      for (int ks = 0; ks < KN; ++ks) da[ks] = Tr::from_acc(ds, ks);
 #pragma unroll
-        for (int v = 0; v < ND; ++v)
-          Tr::mma(dk[v], da, Tr::load_b_perm([&](int q, int k) {
+      for (int v = 0; v < ND; ++v)
+        add_chunk<Tr, KN>(dk[v], da, [&](int ks) {
+          return Tr::load_b_perm([&](int q, int k) {
             return k < D ? to_f32(sq[q * SD + k]) : 0.f;
-          }, q0 + ks * Tr::K, 8 * v, r, c));
-      }
+          }, q0 + ks * Tr::K, 8 * v, r, c);
+        });
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -462,9 +503,12 @@ cudaError_t launch_dkv(const Args& a, void* dphi, void* dg, void* scratch, int s
   return cudaGetLastError();
 }
 
+// The instantiations, as attention_fwd.cu's: (d, dv) = (4, 16), (8, 32) and
+// (16, 64).
 template <typename T>
 cudaError_t dispatch_dq(const Args& a, int d, int dv, void* dtheta, int splits) {
   if (d == 4 && dv == 16) return launch_dq<T, 4, 16>(a, dtheta, splits);
+  if (d == 8 && dv == 32) return launch_dq<T, 8, 32>(a, dtheta, splits);
   if (d == 16 && dv == 64) return launch_dq<T, 16, 64>(a, dtheta, splits);
   return cudaErrorInvalidValue;
 }
@@ -474,6 +518,8 @@ cudaError_t dispatch_dkv(const Args& a, int d, int dv, void* dphi, void* dg,
                          void* scratch, int splits, int rows_per_split) {
   if (d == 4 && dv == 16)
     return launch_dkv<T, 4, 16>(a, dphi, dg, scratch, splits, rows_per_split);
+  if (d == 8 && dv == 32)
+    return launch_dkv<T, 8, 32>(a, dphi, dg, scratch, splits, rows_per_split);
   if (d == 16 && dv == 64)
     return launch_dkv<T, 16, 64>(a, dphi, dg, scratch, splits, rows_per_split);
   return cudaErrorInvalidValue;
@@ -484,6 +530,9 @@ cudaError_t occupancy_dq(int d, int dv, int* blocks_per_sm) {
   if (d == 4 && dv == 16)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, attention_bwd_dq_kernel<T, 4, 16>, kDqThreads, 0);
+  if (d == 8 && dv == 32)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_bwd_dq_kernel<T, 8, 32>, kDqThreads, 0);
   if (d == 16 && dv == 64)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, attention_bwd_dq_kernel<T, 16, 64>, kDqThreads, 0);
@@ -495,6 +544,9 @@ cudaError_t occupancy_dkv(int d, int dv, int* blocks_per_sm) {
   if (d == 4 && dv == 16)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, attention_bwd_dkv_kernel<T, 4, 16>, kDkvThreads, 0);
+  if (d == 8 && dv == 32)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_bwd_dkv_kernel<T, 8, 32>, kDkvThreads, 0);
   if (d == 16 && dv == 64)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, attention_bwd_dkv_kernel<T, 16, 64>, kDkvThreads, 0);

@@ -33,8 +33,18 @@
 //   arithmetic.
 // - S = theta phi^T lands in accumulator fragments. The online softmax runs
 //   on them in registers: row max over the lane quad by shuffles, the SFU's
-//   exp2 with log2 e folded in, one rescale of the accumulator per tile. P
+//   exp2 of (s - max) log2 e, one rescale of the accumulator per tile. P
 //   feeds P @ g from registers.
+// - s - max is formed before the scaling by log2 e, as the TPU kernel's
+//   exp(s - m) is: at logits of thousands (the cond-128 generator's up0 at
+//   its initial weights) a rounded max * log2 e puts the top key's p a part
+//   in a thousand off 1, and lse = max + log(sum p) with it.
+// - The tensor cores add into their accumulator with truncation, not
+//   rounding to nearest, so a sum kept in MMA fragments across a long loop
+//   drifts toward zero: over M = 1024 keys o came out 5.6e-6 (relative)
+//   short of float64 on average on an H100, where the plain float32 version
+//   is unbiased. Each tile's P @ g therefore starts from zero and is added to
+//   the running accumulator with an FMA, which rounds to nearest.
 // - The ordinary instructions around the MMAs (TF32 splits, softmax,
 //   shared-memory reads) far outnumber them, so the splits are integer
 //   operations and exp2 is the SFU's bare instruction.
@@ -137,15 +147,14 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) tile_max[e / 2] = fmaxf(tile_max[e / 2], s[j][e]);
-    float corr[2], shift[2];
+    float corr[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 1));
       tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 2));
       // tile 0 holds key 0, so the running max is finite from there on
       const float new_max = fmaxf(run_max[i], tile_max[i]);
-      shift[i] = new_max * kLog2e;
-      corr[i] = exp2_approx(fmaf(run_max[i], kLog2e, -shift[i]));
+      corr[i] = exp2_approx((run_max[i] - new_max) * kLog2e);
       run_max[i] = new_max;
       run_sum[i] *= corr[i];
     }
@@ -153,23 +162,26 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2_approx(fmaf(s[j][e], kLog2e, -shift[e / 2]));
+        s[j][e] = exp2_approx((s[j][e] - run_max[e / 2]) * kLog2e);
         run_sum[e / 2] += s[j][e];
       }
-#pragma unroll
-    for (int v = 0; v < NV; ++v)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[v][e] *= corr[e / 2];
-
+    // this tile's P g in a zeroed tile, then acc = acc * corr + P g rounded
+    // to nearest: the tensor cores' accumulation truncates, so summing every
+    // tile in the MMA accumulator would bias o toward zero in proportion to M
+    float pg[NV][4] = {};
 #pragma unroll
     for (int ks = 0; ks < kTileM / Tr::K; ++ks) {
       const typename Tr::A pa = Tr::from_acc(s, ks);
 #pragma unroll
       for (int v = 0; v < NV; ++v)
-        Tr::mma(acc[v], pa, Tr::load_b_perm([&](int key, int col) {
+        Tr::mma(pg[v], pa, Tr::load_b_perm([&](int key, int col) {
           return to_f32(sg[key * SV + col]);
         }, ks * Tr::K, 8 * v, r, c));
     }
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[v][e] = fmaf(acc[v][e], corr[e / 2], pg[v][e]);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
@@ -203,11 +215,16 @@ cudaError_t launch(const void* theta, const void* phi, const void* g, void* o,
   return cudaGetLastError();
 }
 
+// The instantiations: (d, dv) = (4, 16) for the generator's Attention(32),
+// (8, 32) for the cond-128 generator's Attention(64) (d = 8 is the TF32 MMA
+// depth, no padding; bf16 pads it to 16) and (16, 64) for the discriminator's
+// Attention3d(128).
 template <typename T>
 cudaError_t dispatch(const void* theta, const void* phi, const void* g, void* o,
                      void* lse, int b, int n, int m, int d, int dv,
                      cudaStream_t stream) {
   if (d == 4 && dv == 16) return launch<T, 4, 16>(theta, phi, g, o, lse, b, n, m, stream);
+  if (d == 8 && dv == 32) return launch<T, 8, 32>(theta, phi, g, o, lse, b, n, m, stream);
   if (d == 16 && dv == 64) return launch<T, 16, 64>(theta, phi, g, o, lse, b, n, m, stream);
   return cudaErrorInvalidValue;
 }
@@ -217,6 +234,9 @@ cudaError_t occupancy(int d, int dv, int* blocks_per_sm) {
   if (d == 4 && dv == 16)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, attention_fwd_kernel<T, 4, 16>, kThreads, 0);
+  if (d == 8 && dv == 32)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, attention_fwd_kernel<T, 8, 32>, kThreads, 0);
   if (d == 16 && dv == 64)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks_per_sm, attention_fwd_kernel<T, 16, 64>, kThreads, 0);

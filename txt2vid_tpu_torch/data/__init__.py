@@ -5,12 +5,14 @@ caption vocabulary, the `.npy` video dataset, collation and a threaded loader.
   pairs, skipping missing videos, and reads `<vid>.npy` uint8 (T, H, W, C)
   clips, picking `num_frames` evenly spaced (or sorted random) frames.
   Directories of `.jpg`/`.png` frames need PIL, which the port does not use:
-  they raise NotImplementedError (queued, with the packed and device-resident
-  datasets).
+  they raise NotImplementedError.
 - collate pads captions to a static `max_caption_len` and returns lengths.
 - Loader is a shuffling epoch iterator whose worker threads keep
   num_workers + 1 batches decoded ahead; it yields host numpy batches (uint8
   video unless normalize=True). The trainer moves them to the device.
+- BatchLoader does the same for batch-level datasets, which assemble whole
+  batches themselves (`get_batch`, the packed frame cache of data/packed.py);
+  get_loader picks it for them.
 """
 
 import pickle
@@ -22,7 +24,8 @@ import numpy as np
 from txt2vid_tpu_torch.data.vocab import Vocab, build_vocab, encode_caption, load_pickle
 
 __all__ = ["Vocab", "build_vocab", "encode_caption", "load_pickle", "VideoDataset",
-           "transform_frames", "collate", "Loader", "get_loader", "my_dataset"]
+           "transform_frames", "collate", "Loader", "BatchLoader", "get_loader",
+           "my_dataset"]
 
 
 def pick_frames(num_available: int, num_frames: int = 16, random: bool = False,
@@ -158,19 +161,28 @@ class Loader:
             self.rng.shuffle(order)
         slices = [order[b * self.batch_size:(b + 1) * self.batch_size]
                   for b in range(len(self))]
-
-        def load_batch(idxs):
-            return collate([self.dataset[int(i)] for i in idxs], self.max_caption_len)
-
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             ahead = self.num_workers + 1
-            futs = [ex.submit(load_batch, s) for s in slices[:ahead]]
+            futs = [ex.submit(self._load, s) for s in slices[:ahead]]
             for s in slices[ahead:]:
-                nxt = ex.submit(load_batch, s)
+                nxt = ex.submit(self._load, s)
                 yield futs.pop(0).result()
                 futs.append(nxt)
             for f in futs:
                 yield f.result()
+
+    def _load(self, idxs):
+        return collate([self.dataset[int(i)] for i in idxs], self.max_caption_len)
+
+
+class BatchLoader(Loader):
+    """Loader over a batch-level dataset, one that assembles whole batches
+    itself (`get_batch(idxs, max_caption_len) -> batch dict`, the packed
+    frame cache; :284-323). The same seed gives the JAX package's batch
+    order."""
+
+    def _load(self, idxs):
+        return self.dataset.get_batch(idxs, self.max_caption_len)
 
 
 def my_dataset(data=None, vocab=None, anno=None, transform=None, random_frames=0,
@@ -183,10 +195,12 @@ def my_dataset(data=None, vocab=None, anno=None, transform=None, random_frames=0
 
 def get_loader(dset=None, batch_size=64, val=False, num_workers=4, max_caption_len=32,
                seed=0):
-    """A Loader over `dset`, shuffled unless `val` (:379-387)."""
+    """A Loader over `dset`, or a BatchLoader where it is batch-level
+    (`get_batch`), shuffled unless `val` (:379-387)."""
     if hasattr(dset, "get_batch"):
-        raise NotImplementedError("batch-level (packed) datasets come in a later slice "
-                                  "of the port")
+        return BatchLoader(dset, batch_size=batch_size, shuffle=not val,
+                           num_workers=num_workers, max_caption_len=max_caption_len,
+                           seed=seed)
     return Loader(dset, batch_size=batch_size, shuffle=not val, num_workers=num_workers,
                   max_caption_len=max_caption_len, seed=seed)
 

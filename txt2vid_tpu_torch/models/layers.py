@@ -7,17 +7,58 @@ for CPU tensors. Module and parameter names follow the JAX package, so
 txt2vid_tpu_torch.convert maps a flax tree onto these state dicts by name.
 """
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from txt2vid_tpu_torch.ops.attention import attention_core_auto
+from txt2vid_tpu_torch.ops.attention import attention_core_auto, kernel_disabled, kernels_disabled
 from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, kernel_init_
 from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
                                            max_pool_3d, upsample_nearest_2d)
 
 # flax BatchNorm(momentum=0.9): running = 0.9 * running + 0.1 * batch statistic
 _FLAX_MOMENTUM = 0.9
+# set while remat recomputes a block's forward for its backward
+_RECOMPUTING = contextvars.ContextVar("txt2vid_remat_recomputing", default=False)
+
+
+class _recompute_context:
+    """Entered for each recomputation of one remat block (a block under the
+    gradient penalty's double backward is recomputed once per backward)."""
+
+    def __init__(self, kernels_off: bool):
+        self.kernels_off = kernels_off
+        self._entered = []
+
+    def __enter__(self):
+        kernels = kernel_disabled(self.kernels_off)
+        kernels.__enter__()
+        self._entered.append((_RECOMPUTING.set(True), kernels))
+
+    def __exit__(self, *exc):
+        token, kernels = self._entered.pop()
+        _RECOMPUTING.reset(token)
+        return kernels.__exit__(*exc)
+
+
+def remat(fn, *args):
+    """fn(*args), its activations recomputed in the backward instead of kept
+    (flax's nn.remat, the `remat` field of MultiScaleGen and MultiScaleDiscrim):
+    non-reentrant torch.utils.checkpoint, so the double backward of the
+    gradient penalty goes through it. The recomputation sees what the forward
+    saw and changes nothing the forward did: it takes the attention path the
+    forward took (no_kernel() or not, captured at the forward), and BatchNorm
+    leaves its running statistics alone, which the forward updated once, as
+    flax's remat does. The wrapped blocks draw no random numbers; the RNG
+    state is restored for the recomputation all the same."""
+    kernels_off = kernels_disabled()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recompute_context(kernels_off)))
 
 
 def _init_conv(conv, generator, gain: float = 1.0):
@@ -32,15 +73,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     the biased batch variance and updates the running statistics as
     0.9 * old + 0.1 * batch, the variance biased too (torch's own update uses
     momentum 0.1 and the unbiased variance). Eval mode uses the running
-    statistics."""
+    statistics. The recomputation of a remat block (see `remat`) normalises
+    the same way and leaves the statistics alone."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(_FLAX_MOMENTUM).add_(mean, alpha=1 - _FLAX_MOMENTUM)
-            self.running_var.mul_(_FLAX_MOMENTUM).add_(var, alpha=1 - _FLAX_MOMENTUM)
+        if not _RECOMPUTING.get():      # remat's recomputation updates nothing
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self.running_mean.mul_(_FLAX_MOMENTUM).add_(mean, alpha=1 - _FLAX_MOMENTUM)
+                self.running_var.mul_(_FLAX_MOMENTUM).add_(var, alpha=1 - _FLAX_MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def init_weights(self, generator):

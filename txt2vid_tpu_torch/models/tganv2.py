@@ -11,6 +11,12 @@ BatchNorm follows the module's train/eval mode, which must agree with `train`.
 
 Discriminator: one shared (or one per scale) Resnet3D applied to the
 positional list of scales.
+
+`remat` (both) recomputes the activations of the same blocks flax's nn.remat
+wraps in the JAX package (tganv2.py:120-123,183-185) in the backward instead
+of keeping them: the generator's base and each additional UpBlock, the
+discriminator's every Resnet3D call (layers.remat). The subsamples stay
+outside the wrapped blocks. Numerics do not change.
 """
 
 from collections.abc import Sequence
@@ -19,7 +25,7 @@ import torch
 from torch import nn
 
 from txt2vid_tpu_torch.models.conv_lstm import ConvLSTM
-from txt2vid_tpu_torch.models.layers import RenderBlock, UpBlock
+from txt2vid_tpu_torch.models.layers import RenderBlock, UpBlock, remat
 from txt2vid_tpu_torch.models.resnet3d import Resnet3D
 from txt2vid_tpu_torch.ops.initializers import kernel_init_
 from txt2vid_tpu_torch.ops.subsample import subsample_video
@@ -47,8 +53,9 @@ class MultiScaleGen(nn.Module):
                  num_channels: int = 3, additional_blocks: Sequence[int] = (64, 32, 32),
                  fm_channels: int = 1024, num_frames: int = 16, cond_dim: int = 0,
                  fm_stride: int | None = None, with_non_local: bool = False,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.latent_size = latent_size
         self.num_frames = num_frames
         self.fm_channels = fm_channels
@@ -105,7 +112,7 @@ class MultiScaleGen(nn.Module):
                 v = subsample_video(v, phases[i - 1])
                 num_frames //= 2
                 x = v.reshape((-1,) + v.shape[2:])
-            x = block(x)
+            x = remat(block, x) if self.remat and torch.is_grad_enabled() else block(x)
             if i == len(blocks) - 1 or train or (output_blocks is not None
                                                  and i in output_blocks):
                 r = render(x).permute(0, 2, 3, 1)        # (B*T, H, W, C)
@@ -125,9 +132,10 @@ class MultiScaleDiscrim(nn.Module):
     def __init__(self, discrim_down_blocks: Sequence[int] = (4, 4, 4, 4),
                  num_channels: int = 3, cond_dim: int = 0, single_discrim: bool = True,
                  wide: bool = False, with_attn: bool = True, cond_head: str = "concat",
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, remat: bool = False):
         super().__init__()
         self.single_discrim = single_discrim
+        self.remat = remat
 
         def make(db):
             return Resnet3D(num_channels=num_channels, cond_dim=cond_dim,
@@ -146,8 +154,11 @@ class MultiScaleDiscrim(nn.Module):
     def forward(self, x, cond=None, computed_features=None, scale_indices=None):
         if scale_indices is None:
             scale_indices = range(len(x))
-        return [self.sub(si)(scale,
-                             cond[pos] if cond is not None else None,
-                             computed_features[pos] if computed_features is not None
-                             else None)
-                for pos, (si, scale) in enumerate(zip(scale_indices, x))]
+        out = []
+        for pos, (si, scale) in enumerate(zip(scale_indices, x)):
+            args = (scale, cond[pos] if cond is not None else None,
+                    computed_features[pos] if computed_features is not None else None)
+            sub = self.sub(si)
+            out.append(remat(sub, *args) if self.remat and torch.is_grad_enabled()
+                       else sub(*args))
+        return out

@@ -66,14 +66,25 @@ def _first_order_backward(ctx, do):
 
 
 @contextlib.contextmanager
-def no_kernel():
-    """Force the plain attention path inside the block (the counterpart of
-    `no_pallas`, txt2vid_tpu/ops/attention.py:81-92)."""
-    token = _KERNEL_DISABLED.set(True)
+def kernel_disabled(disabled: bool):
+    """Inside the block the attention takes its plain path if `disabled`, the
+    kernels' otherwise, whatever an enclosing block said."""
+    token = _KERNEL_DISABLED.set(disabled)
     try:
         yield
     finally:
         _KERNEL_DISABLED.reset(token)
+
+
+def no_kernel():
+    """Force the plain attention path inside the block (the counterpart of
+    `no_pallas`, txt2vid_tpu/ops/attention.py:81-92)."""
+    return kernel_disabled(True)
+
+
+def kernels_disabled() -> bool:
+    """Whether a no_kernel() block is active here."""
+    return _KERNEL_DISABLED.get()
 
 
 def attention_core_auto(theta, phi, g, use_kernel: bool = True):

@@ -17,9 +17,10 @@ What bounds them on an H100: at the generator's training shape (B, N, M, d, dv)
 = (40, 1024, 256, 4, 16) K1 does 2*B*N*M*(d + dv) = 0.42 GFLOP, K2
 2*B*N*M*(2d + dv) = 0.50 GFLOP and K3 2*B*N*M*(2d + 2dv) = 0.84 GFLOP and 10.5 M
 exponentials each, against about 5 MB of traffic, so operations bound them.
-All three run their products on the tensor cores (mma.sync; float32 as three
-TF32 passes, d zero-padded to the MMA depth of 8, or 16 in bfloat16; see the
-sources' notes).
+At the cond-128 generator's (256, 4096, 1024, 8, 32) they do 86, 103 and 172
+GFLOP and 1.07 G exponentials each against about 0.2 GB. All three run their
+products on the tensor cores (mma.sync; float32 as three TF32 passes, d
+zero-padded to the MMA depth of 8, or 16 in bfloat16; see the sources' notes).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it computes its plain version (`*_reference`)
@@ -34,8 +35,9 @@ import torch
 from txt2vid_tpu_torch.ops import _build
 
 # (d, dv) pairs the kernels are instantiated for: the generator's 2-D Attention
-# at 32 channels and the discriminator's Attention3d at 128 channels
-SUPPORTED_DV = {4: 16, 16: 64}
+# at 32 channels (the 64-px flagship) and 64 channels (the cond-128 flagship's
+# up0), and the discriminator's Attention3d at 128 channels
+SUPPORTED_DV = {4: 16, 8: 32, 16: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' tiles: K1 64 query rows per block; K2 4 warps of 16 query rows
 # and 16-key chunks of 64-key stages, 1, 2 or 4 warps sharing a query tile when

@@ -8,10 +8,21 @@ scale only) and [-1, 1] -> uint8 quantization on the device; only the uint8
 video goes back to the host. The generator's non-local attention runs through
 the fused CUDA kernel (ops/fused_attention.py).
 
-`python -m txt2vid_tpu_torch.serve --bench N` times N videos and prints one JSON
-line. Without `--weights` the flagship conditional model is built from `--seed`
-with random weights and a vocabulary of the synthetic moving-digit captions.
-Serving in bf16 waits for a later slice.
+`GeneratorService.from_checkpoint` serves a training checkpoint (the JAX
+package's flax-msgpack format, which the port's trainer writes too) from the
+--G / --D / --sent specs it was trained with, optionally the `.ema` sibling's
+generator average, as txt2vid_tpu/serve.py:101-145 does:
+
+    python -m txt2vid_tpu_torch.serve --weights out/iter_6_... \
+        --G "$GC3" --D "$DC3" --sent txt2vid_tpu.models.txt.Seq2Seq \
+        --vocab vocab.pickle --frame_sizes 32 64 128 --num_frames 32 \
+        --num_channels 1 [--ema] [--out_samples DIR]
+
+writes one PNG grid per sample (--format png). Without --weights the
+flagship conditional model is built from --seed with random weights and a
+vocabulary of the synthetic moving-digit captions. `--bench N` times N videos
+and prints one JSON line. bf16 serving (--bf16) and the video formats (gif,
+avi, mp4, webm) raise NotImplementedError naming themselves.
 """
 
 import argparse
@@ -22,12 +33,20 @@ import numpy as np
 import torch
 
 from txt2vid_tpu_torch import resolve_device
+from txt2vid_tpu_torch.config import create_object
+from txt2vid_tpu_torch.convert import (jax_to_torch_generator, load_encoder_vars,
+                                       torch_to_jax_discriminator, torch_to_jax_encoder,
+                                       torch_to_jax_generator)
 from txt2vid_tpu_torch.data import build_vocab, encode_caption, load_pickle
 from txt2vid_tpu_torch.data.synthetic import moving_digit_captions
 from txt2vid_tpu_torch.gan.cond_gan import CondGan
-from txt2vid_tpu_torch.models import tganv2, tganv2_cond
+from txt2vid_tpu_torch.models import tganv2_cond
 from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
+from txt2vid_tpu_torch.utils import ensure_exists, status
+from txt2vid_tpu_torch.utils.checkpoint import restore_state
+
+VIDEO_FORMATS = ("gif", "avi", "mp4", "webm")
 
 
 def quantize(video):
@@ -125,40 +144,79 @@ class GeneratorService:
                    max_caption_len=max_caption_len, device=device)
 
     @classmethod
-    def from_checkpoint(cls, weights, vocab_path=None, batch_size: int = 8,
-                        max_caption_len: int = 16, device=None):
-        """Load a file written by `save_checkpoint`."""
+    def from_checkpoint(cls, weights, G, D, sent=None, vocab_path=None,
+                        frame_sizes=(8, 16, 32, 64), num_frames=16, num_channels=3,
+                        batch_size: int = 8, max_caption_len: int = 16, bf16: bool = False,
+                        ema: bool = False, device=None):
+        """A training checkpoint (the whole train state, flax msgpack) from the
+        specs it was trained with: G, the list D and the caption encoder `sent`
+        (built when a vocabulary is given). The generator, its BatchNorm
+        statistics and the encoder come from the file, the discriminators'
+        parameters are checked against D's shapes as the JAX package's
+        template does; with `ema` the generator takes the parameters of the
+        `<weights>.ema` sibling. frame_sizes, num_frames and num_channels
+        describe the training batch and must agree with the generator."""
+        if bf16:
+            raise NotImplementedError("--bf16 serving comes in a later slice of the port")
+        from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
         device = resolve_device(device)
-        ckpt = torch.load(weights, map_location="cpu", weights_only=True)
-        gen = tganv2.MultiScaleGen(**ckpt["gen_config"])
-        gen.load_state_dict(ckpt["generator"])
         vocab = load_pickle(vocab_path) if vocab_path else None
-        txt = None
-        if ckpt.get("encoder") is not None:
-            txt = Seq2Seq(**ckpt["enc_config"])
-            txt.load_state_dict(ckpt["encoder"])
+        txt, cond_dim = None, 0
+        if vocab is not None:
+            txt = create_object(sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
+                                vocab_size=len(vocab))
+            cond_dim = txt.encoding_size
+        gen = create_object(G, cond_dim=cond_dim)
+        discrims = [create_object(d, cond_dim=cond_dim) for d in D]
+        size = gen.fm_w * 8 * 2 ** (gen.num_blocks - 1)
+        rendered = (gen.num_frames, size, gen.render_base.conv.out_channels)
+        if rendered != (num_frames, frame_sizes[-1], num_channels):
+            raise ValueError(f"the generator renders (frames, size, channels) {rendered}, "
+                             f"not {(num_frames, frame_sizes[-1], num_channels)}")
+
+        g_params, g_stats = torch_to_jax_generator(gen.state_dict())
+        template = {"g_vars": {"batch_stats": g_stats, "params": g_params},
+                    "d_vars": {str(k): {"params": torch_to_jax_discriminator(d.state_dict())}
+                               for k, d in enumerate(discrims)}}
+        if txt is not None:
+            template["txt_vars"] = {"params": torch_to_jax_encoder(txt.state_dict())}
+        state = restore_state(template, weights)
+        with torch.no_grad():
+            gen.load_state_dict(jax_to_torch_generator(state["g_vars"]["params"],
+                                                       state["g_vars"]["batch_stats"]))
+            if txt is not None:
+                load_encoder_vars(txt, state["txt_vars"])
+            if ema:
+                params = load_ema(weights, init_ema(gen))
+                if params is None:
+                    raise FileNotFoundError(f"ema=True: no sibling {weights}.ema (a run "
+                                            "trained without --g_ema?)")
+                for n, p in gen.named_parameters():
+                    p.copy_(params[n])
         return cls(CondGan(gen, txt), vocab=vocab, batch_size=batch_size,
                    max_caption_len=max_caption_len, device=device)
 
 
-def save_checkpoint(path, gen_config: dict, gen_state: dict,
-                    enc_config: dict | None = None, enc_state: dict | None = None):
-    """Write the port's serving checkpoint: the generator's constructor kwargs
-    (tganv2.MultiScaleGen) and state dict, and the caption encoder's
-    (txt.Seq2Seq), e.g. from txt2vid_tpu_torch.convert."""
-    torch.save({"gen_config": gen_config, "generator": gen_state,
-                "enc_config": enc_config, "encoder": enc_state}, path)
-
-
 def main(args):
+    """Serve from --weights (or the random-weight flagship); returns the uint8
+    videos (N, T, H, W, C), or None with --bench."""
     # float32 convolutions and matmuls in float32, not TF32 (the JAX package's
     # semantics; cuDNN would take TF32 by default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.bf16:
+        raise NotImplementedError("--bf16 serving comes in a later slice of the port")
+    if args.format in VIDEO_FORMATS:
+        raise NotImplementedError(f"--format {args.format} comes in a later slice of the "
+                                  "port (utils/video.py); --format png writes grids")
     if args.weights:
+        if not (args.G and args.D):
+            raise ValueError("--weights needs the --G and --D specs it was trained with")
         svc = GeneratorService.from_checkpoint(
-            args.weights, vocab_path=args.vocab, batch_size=args.batch_size,
-            max_caption_len=args.max_caption_len, device=args.device)
+            args.weights, args.G, args.D, sent=args.sent, vocab_path=args.vocab,
+            frame_sizes=tuple(args.frame_sizes), num_frames=args.num_frames,
+            num_channels=args.num_channels, batch_size=args.batch_size,
+            max_caption_len=args.max_caption_len, ema=args.ema, device=args.device)
     else:
         vocab = (load_pickle(args.vocab) if args.vocab
                  else build_vocab(moving_digit_captions(1000, args.seed)))
@@ -187,30 +245,55 @@ def main(args):
             "device": (torch.cuda.get_device_name(svc.device)
                        if svc.device.type == "cuda" else str(svc.device)),
         }))
-        return
+        return None
 
+    from txt2vid_tpu_torch.gan.trainer import save_frames
     out = svc.generate(sentences=sentences, num=args.num_samples, seed=args.seed)
-    np.save(args.out, out)
-    print(f"wrote {args.out}: uint8 {out.shape}")
+    ensure_exists(args.out_samples)
+    for i, v in enumerate(out):
+        path = f"{args.out_samples}/serve_{i}.png"
+        save_frames(v[None], path)          # uint8 passes through to_grid
+        status(f"wrote {path}")
+    return out
 
 
-def cli(argv=None):
-    p = argparse.ArgumentParser()
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--weights", default=None,
-                   help="checkpoint from save_checkpoint; without it the flagship "
-                        "model is built from --seed with random weights")
+                   help="a training checkpoint (iter_*); without it the flagship model "
+                        "is built from --seed with random weights")
+    p.add_argument("--G", default=None, help="the generator spec the checkpoint was "
+                                             "trained with (needed with --weights)")
+    p.add_argument("--D", nargs="+", default=None,
+                   help="the discriminator specs it was trained with")
+    p.add_argument("--sent", default=None, help="the caption encoder spec")
     p.add_argument("--vocab", default=None)
     p.add_argument("--sentences", nargs="+", default=None)
+    p.add_argument("--frame_sizes", type=int, nargs="+", default=[8, 16, 32, 64])
+    p.add_argument("--num_frames", type=int, default=16)
+    p.add_argument("--num_channels", type=int, default=3)
     p.add_argument("--num_samples", type=int, default=8)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_caption_len", type=int, default=16)
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="not in the port yet (raises)")
+    p.add_argument("--ema", action="store_true", default=False,
+                   help="serve the sibling <weights>.ema generator average instead of "
+                        "the live parameters (gan/ema.py)")
     p.add_argument("--bench", type=int, default=0,
                    help="measure throughput over N videos, print one JSON line")
-    p.add_argument("--out", default="serve_out.npy",
-                   help="where the uint8 (N, T, H, W, C) videos are saved")
+    p.add_argument("--format", default="png", choices=["png", *VIDEO_FORMATS],
+                   help="png = one grid image per sample; the video formats are not in "
+                        "the port yet (raise)")
+    p.add_argument("--fps", type=int, default=8, help="frame rate of the video formats")
+    p.add_argument("--out_samples", default="out_samples")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="default: cuda")
-    main(p.parse_args(argv))
+    return p
+
+
+def cli(argv=None):
+    return main(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

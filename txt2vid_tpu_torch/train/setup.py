@@ -24,7 +24,11 @@ def setup(args):
     """(seed, device): seeds from --seed, the device from --device (CUDA unless
     the caller asks for another; raises without a GPU), reported with the
     card's name; --debug_nans turns on autograd's anomaly detection (the
-    counterpart of jax_debug_nans)."""
+    counterpart of jax_debug_nans). Float32 matmuls and convolutions run in
+    float32, not TF32 (the JAX package's semantics; cuDNN takes TF32 by
+    default), as bench.py and serve.py hold them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     seed = set_seed(getattr(args, "seed", None))
     status(f"seed: {seed}")
     device = resolve_device(getattr(args, "device", None))
