@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    float64 at F64_SHAPES, with unit-scale inputs and at F64_SCALES: at unit
    scale the kernels' mean error toward zero must stay within BIAS_TOL of the
    shape (the tensor cores' truncating adds, which the kernels keep to one
-   chunk at a time); at the other scales the drift is printed. At every
+   chunk at a time), at twice unit scale within BIAS_X2_TOL at every shape;
+   at the other scales the drift is printed. At every
    scale the backward from K1's own lse and o must stray from float64 by at
    most OWN_RMS_TOL times the plain versions' path, in each gradient that
    float32 holds.
@@ -87,24 +88,51 @@ Phases, in order; any failure exits non-zero and prints no result line:
    32) and the discriminator's three scales. Then one step with the kernels
    against no_kernel() (as in cli),
    the peak memory and launches of a GP and a plain step with remat in G, off,
-   and in G and D, 10 steps timed alone, and the last checkpoint served by
+   and in G and D, 6 steps timed alone, and the last checkpoint served by
    `txt2vid_tpu_torch.serve.main`, live and with --ema: K1 once per chunk of
    8 at (256, 4096, 1024, 8, 32), the videos within 1e-4 (uint8 within 1) of
    the same service under no_kernel().
 
-Each phase prints its seconds.
+8. bf16: bfloat16 compute through the same entry points. scripts/r4_ema64.sh's
+   command line (the 64-px flagship with 1 channel and the proj head, GP 0.5
+   every step, EMA, batch 40, --bf16 --bf16_nu) on 80 packed 16x64x64x1
+   clips the port writes: 6 steps, each finite and launching K1 17 and K2, K3
+   13 times, every launch a bf16 instantiation; the checkpoint's Adam moments
+   bf16 under flax's name and read back bit for bit; --resume for 2 steps
+   under the float32 config from that checkpoint and 2 more under the bf16
+   one from the float32 checkpoint; GP and plain steps timed beside the
+   same command line in float32; one bf16 step with the kernels and one
+   under no_kernel() against a float32 step of the same state (the kernels'
+   Adam first moments no further from it than 2x the plain step's, losses
+   within 2e-2). Then scripts/r9_session.sh's run_chunk bf16 (--bf16
+   --bf16_nu --bf16_params) at cond-128 on phase cond128's clips: 6 steps at
+   14/10/10 launches, each step's finiteness, ms and the peak memory; where
+   finite the same one-step check, where not the no_kernel() step from the
+   state before the first non-finite one must be non-finite too; one step
+   profiled. Then the
+   service in bf16 (20 captions, batch 8) against no_kernel() (float 2e-2,
+   uint8 within 2), and the port's bench in float32 and with the JAX bench's
+   bf16 stack (--bf16 --bf16_nu --bf16_params --shared_gen_fwd), each with a
+   profile of 3 steps.
+
+Each phase prints its seconds. The kernels line holds each kernel twice: its
+float32 instantiations (K1 at the serving shape, K2 and K3 at the training
+shape, the launches of phases serve and train) and its bfloat16 ones (at the
+training shape, the launches of phase bf16's 64-px command line).
 
 With --baseline DIR (another checkout's root, e.g. the parent commit's
 `git archive` unpacked under build/), that checkout's K1, K2 and K3 are built
 from its own sources; phase float64 reads their drift beside this one's, and
 a phase compare after it times them beside this one's at the same shapes, in
-the order baseline, this, this, baseline.
+float32 and bfloat16, in the order baseline, this, this, baseline.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -128,7 +156,7 @@ from txt2vid_tpu_torch.data import build_vocab, load_pickle
 from txt2vid_tpu_torch.data import packed
 from txt2vid_tpu_torch.data.synthetic import generate_examples, moving_digit_captions
 from txt2vid_tpu_torch.gan import ema as ema_mod
-from txt2vid_tpu_torch.gan.train_step import TrainStep
+from txt2vid_tpu_torch.gan.train_step import TrainStep, adam
 from txt2vid_tpu_torch.models import layers as layers_mod
 from txt2vid_tpu_torch.models.layers import Attention, Attention3d
 from txt2vid_tpu_torch.ops import _build
@@ -139,13 +167,14 @@ from txt2vid_tpu_torch.ops.fused_attention import (
     fused_attention_reference, occupancy, sm_count)
 from txt2vid_tpu_torch.serve import GeneratorService
 from txt2vid_tpu_torch.train import gan as train_gan
-from txt2vid_tpu_torch.utils import checkpoint
+from txt2vid_tpu_torch.utils import checkpoint, msgpack
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth, float32 outside the tensor cores,
 # and TF32 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # (B, N, M, d, dv): the generator's up1 attention serving batch 8 (128 frames
 # of 32x32) and training batch 40 (after two subsamples, 40 frames of 32x32),
@@ -298,10 +327,11 @@ def bounds(shape, dtype, kernel):
     backward do in the input dtype, lse and delta in f32) read once and the
     outputs written once over HBM bandwidth, or its 2*B*N*M*PAIR_MACS
     operations over a peak rate, whichever is larger (exponentials not
-    counted). Returns {bound_ms, bound_by} against the f32 rate outside the
-    tensor cores, as earlier records hold, and {tc_bound_ms, tc_bound_by}
-    against three TF32 passes on the tensor cores, the float32 design of the
-    kernels."""
+    counted). In float32 returns {bound_ms, bound_by} against the f32 rate
+    outside the tensor cores, as earlier records hold, and {tc_bound_ms,
+    tc_bound_by} against three TF32 passes on the tensor cores, the float32
+    design of the kernels; in bfloat16 both against one pass at the dense
+    bf16 tensor-core rate."""
     b, n, m, d, dv = shape
     isz = torch.finfo(dtype).bits // 8
     nbytes = isz * (b * n * d + b * m * d + b * m * dv)
@@ -312,9 +342,10 @@ def bounds(shape, dtype, kernel):
         nbytes += isz * (b * n * d if kernel == "attention_bwd_dq" else b * m * (d + dv))
     flops = 2 * b * n * m * PAIR_MACS[kernel](d, dv)
     t_bytes = nbytes / PEAK_BYTES_PER_S
+    rates = ((flops / PEAK_F32_FLOP_PER_S, 3 * flops / PEAK_TF32_FLOP_PER_S)
+             if dtype == torch.float32 else (flops / PEAK_BF16_FLOP_PER_S,) * 2)
     out = {}
-    for key, t_ops in (("", flops / PEAK_F32_FLOP_PER_S),
-                       ("tc_", 3 * flops / PEAK_TF32_FLOP_PER_S)):
+    for key, t_ops in zip(("", "tc_"), rates):
         out[f"{key}bound_ms"] = 1e3 * max(t_bytes, t_ops)
         out[f"{key}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return out
@@ -338,10 +369,13 @@ def check_tf32_off(phase):
 def zero_counts():
     for k in KERNELS.values():
         k.launches = 0
+        k.dtype_launches = dict.fromkeys(k.dtype_launches, 0)
 
 
-def counts():
-    return {name: k.launches for name, k in KERNELS.items()}
+def counts(dtype=None):
+    """Each kernel's launches, or those of its `dtype` instantiation."""
+    return {name: k.launches if dtype is None else k.dtype_launches[dtype]
+            for name, k in KERNELS.items()}
 
 
 def phase_device():
@@ -435,23 +469,34 @@ def phase_attention(seed):
                   f"lse err {err_l:.3g} (tol {tol_lse * scale_l:.3g}) "
                   f"{'ok' if ok else 'DISAGREES'}")
             check(ok, f"attention_fwd disagrees with its plain version at {shape} {dtype}")
-            if dtype == torch.float32:
-                errs[shape] = err_o
+            errs[shape, dtype] = err_o
 
-    record, train, cond = (dict(time_forward(shape, seed), max_abs_err=errs[shape])
-                           for shape in (SERVE_SHAPE, TRAIN_SHAPE, COND128_SHAPE))
-    return {"name": "attention_fwd", "route": "cuda",
+    head = {"name": "attention_fwd", "route": "cuda",
             "source": "txt2vid_tpu_torch/csrc/attention_fwd.cu",
-            "replaces": "txt2vid_tpu/ops/pallas_attention.py:43",
-            "launches": None, **record, "train_shape": train, "cond128_shape": cond,
-            "d_shapes": [time_forward(shape, seed) for shape in D_TRAIN_SHAPES],
-            "cond128_d_shapes": [time_forward(shape, seed) for shape in COND128_D_SHAPES]}
+            "replaces": "txt2vid_tpu/ops/pallas_attention.py:43", "launches": None}
+    f32 = torch.float32
+    record, train, cond = (dict(time_forward(shape, seed), max_abs_err=errs[shape, f32])
+                           for shape in (SERVE_SHAPE, TRAIN_SHAPE, COND128_SHAPE))
+    # the bf16 instantiation's record holds the 64-px training shape, where
+    # the bf16 command line launches it most
+    bf16 = {shape: dict(time_forward(shape, seed, torch.bfloat16),
+                        max_abs_err=errs[shape, torch.bfloat16])
+            for shape in (TRAIN_SHAPE, SERVE_SHAPE, COND128_SHAPE)}
+    return [{**head, **record, "train_shape": train, "cond128_shape": cond,
+             "d_shapes": [time_forward(shape, seed) for shape in D_TRAIN_SHAPES],
+             "cond128_d_shapes": [time_forward(shape, seed) for shape in COND128_D_SHAPES]},
+            {**head, **bf16[TRAIN_SHAPE], "serve_shape": bf16[SERVE_SHAPE],
+             "cond128_shape": bf16[COND128_SHAPE],
+             "d_shapes": [time_forward(shape, seed, torch.bfloat16)
+                          for shape in D_TRAIN_SHAPES],
+             "cond128_d_shapes": [time_forward(shape, seed, torch.bfloat16)
+                                  for shape in COND128_D_SHAPES]}]
 
 
-def time_forward(shape, seed):
-    """K1's float32 time at `shape` beside its plain version's, SDPA's and its
-    bounds, and the warps per SM it keeps resident."""
-    theta, phi, g = attention_inputs(shape, torch.float32, seed)
+def time_forward(shape, seed, dtype=torch.float32):
+    """K1's time at `shape` in `dtype` beside its plain version's, SDPA's and
+    its bounds, and the warps per SM it keeps resident."""
+    theta, phi, g = attention_inputs(shape, dtype, seed)
     ms = cuda_ms(lambda: fused_attention(theta, phi, g))
     device_ms = graph_ms(lambda: fused_attention(theta, phi, g))
     plain_ms = cuda_ms(lambda: fused_attention_reference(theta, phi, g))
@@ -459,9 +504,9 @@ def time_forward(shape, seed):
     sdpa_err, _ = max_err(fused_attention_reference(theta, phi, g), sdpa())
     library_ms = cuda_ms(sdpa)
     library_device_ms = library_graph_ms(sdpa, "scaled_dot_product_attention")
-    bound = bounds(shape, torch.float32, "attention_fwd")
-    occ = occupancy("attention_fwd", shape)
-    print(f"phase kernels: attention_fwd at {shape} float32: kernel {ms:.4f} ms "
+    bound = bounds(shape, dtype, "attention_fwd")
+    occ = occupancy("attention_fwd", shape, dtype)
+    print(f"phase kernels: attention_fwd at {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms "
           f"(in a CUDA graph {device_ms:.4f}), plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {library_ms:.4f} ms (in a CUDA graph "
           f"{library_device_ms}; its max|diff| {sdpa_err:.3g}), "
@@ -470,7 +515,7 @@ def time_forward(shape, seed):
     return {"ms": ms, "graph_ms": device_ms, "plain_ms": plain_ms, **bound,
             "library_ms": library_ms, "library_graph_ms": library_device_ms,
             "resident_warps_per_sm": occ["resident_warps_per_sm"],
-            "shape": list(shape), "dtype": "float32"}
+            "shape": list(shape), "dtype": str(dtype)[6:]}
 
 
 def bwd_inputs(shape, dtype, seed):
@@ -508,8 +553,7 @@ def phase_attention_bwd(seed):
                 f"{w} err {e:.3g} (tol {BWD_TOL[dtype] * sc:.3g})" for w, (e, sc) in errs.items())
                 + f" {'ok' if ok else 'DISAGREES'}")
             check(ok, f"attention_bwd disagrees with its plain version at {shape} {dtype}")
-            if dtype == torch.float32:
-                errs_by_shape[shape] = {w: e for w, (e, _) in errs.items()}
+            errs_by_shape[shape, dtype] = {w: e for w, (e, _) in errs.items()}
 
     for shape in REPEAT_SHAPES:
         args = bwd_inputs(shape, torch.float32, seed)
@@ -527,26 +571,30 @@ def phase_attention_bwd(seed):
     print(f"phase kernels: at {COND128_SHAPE} on {sms} SMs K2 splits each query tile's "
           f"keys {dq_splits(b, n, m, sms)} way(s) over {b * -(-n // 64)} blocks, K3 cuts N "
           f"into {dkv_splits(b, n, m, sms)[0]} split(s) over {b * -(-m // 64)} blocks")
-    records = time_backward(TRAIN_SHAPE, seed)
-    cond = time_backward(COND128_SHAPE, seed)
-    per_shape = [time_backward(shape, seed) for shape in D_TRAIN_SHAPES]
-    per_cond_shape = [time_backward(shape, seed) for shape in COND128_D_SHAPES]
-    for i, r in enumerate(records):
-        r["max_abs_err"] = max(errs_by_shape[TRAIN_SHAPE][w] for w in BWD_OUTPUTS[r["name"]])
-        r["cond128_shape"] = {k: v for k, v in cond[i].items()
-                              if k not in ("name", "route", "source", "replaces", "launches")}
-        r["cond128_shape"]["max_abs_err"] = max(errs_by_shape[COND128_SHAPE][w]
-                                                for w in BWD_OUTPUTS[r["name"]])
-        r["d_shapes"] = [rs[i] for rs in per_shape]
-        r["cond128_d_shapes"] = [rs[i] for rs in per_cond_shape]
-    return records
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        records = time_backward(TRAIN_SHAPE, seed, dtype)
+        cond = time_backward(COND128_SHAPE, seed, dtype)
+        per_shape = [time_backward(shape, seed, dtype) for shape in D_TRAIN_SHAPES]
+        per_cond_shape = [time_backward(shape, seed, dtype) for shape in COND128_D_SHAPES]
+        for i, r in enumerate(records):
+            r["max_abs_err"] = max(errs_by_shape[TRAIN_SHAPE, dtype][w]
+                                   for w in BWD_OUTPUTS[r["name"]])
+            r["cond128_shape"] = {k: v for k, v in cond[i].items()
+                                  if k not in ("name", "route", "source", "replaces", "launches")}
+            r["cond128_shape"]["max_abs_err"] = max(errs_by_shape[COND128_SHAPE, dtype][w]
+                                                    for w in BWD_OUTPUTS[r["name"]])
+            r["d_shapes"] = [rs[i] for rs in per_shape]
+            r["cond128_d_shapes"] = [rs[i] for rs in per_cond_shape]
+        out.append(records)
+    return out
 
 
-def time_backward(shape, seed):
-    """K2's and K3's float32 times at `shape` beside their plain versions',
+def time_backward(shape, seed, dtype=torch.float32):
+    """K2's and K3's times at `shape` in `dtype` beside their plain versions',
     the SDPA backward's (dtheta, dphi and dg together), their bounds and the
     warps per SM they keep resident."""
-    args = bwd_inputs(shape, torch.float32, seed)
+    args = bwd_inputs(shape, dtype, seed)
     theta, phi, g, do = args[:4]
     q, k, v = (t.detach().requires_grad_() for t in (theta, phi, g))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
@@ -572,9 +620,9 @@ def time_backward(shape, seed):
         ms = cuda_ms(lambda: kernel(*args))
         device_ms = graph_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
-        bound = bounds(shape, torch.float32, name)
-        warps = occupancy(name, shape)["resident_warps_per_sm"]
-        print(f"phase kernels: {name} at {shape} float32: kernel {ms:.4f} ms (in a CUDA "
+        bound = bounds(shape, dtype, name)
+        warps = occupancy(name, shape, dtype)["resident_warps_per_sm"]
+        print(f"phase kernels: {name} at {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms (in a CUDA "
               f"graph {device_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
               f"ms by {bound['bound_by']}, tensor-core bound {bound['tc_bound_ms']:.4f} ms, "
               f"{warps:.2f} resident warps per SM")
@@ -586,9 +634,9 @@ def time_backward(shape, seed):
             "plain_ms": plain_ms, **bound, "library_ms": library_ms,
             "library_graph_ms": library_device_ms,
             "library_computes": "dtheta, dphi and dg together",
-            "resident_warps_per_sm": warps, "shape": list(shape), "dtype": "float32"})
+            "resident_warps_per_sm": warps, "shape": list(shape), "dtype": str(dtype)[6:]})
     print(f"phase kernels: scaled_dot_product_attention backward (dtheta, dphi, dg) at "
-          f"{shape} float32: {library_ms:.4f} ms (in a CUDA graph {library_device_ms}; its "
+          f"{shape} {str(dtype)[6:]}: {library_ms:.4f} ms (in a CUDA graph {library_device_ms}; its "
           f"max|diff| {lib_err:.3g}); K2 + K3 {records[0]['ms'] + records[1]['ms']:.4f} ms "
           f"(in a CUDA graph {records[0]['graph_ms'] + records[1]['graph_ms']:.4f})")
     return records
@@ -616,12 +664,15 @@ BIAS_TOL = {F64_SHAPES[0]: 2e-6, TRAIN_SHAPE: 1e-6, F64_SHAPES[2]: 2e-6}
 # first, 0.43x to 1.29x
 OWN_RMS_TOL = 2.0
 WELL_CONDITIONED = 1e-4
-# input scales: 1 is held to BIAS_TOL; the others are printed only. At 2 the
-# products' own truncating adds grow with the logits (at d = 16 past 2e-6, an
-# open fault). The last puts the logits' standard deviation where phase
+# input scales: 1 is held to BIAS_TOL, 2 to BIAS_X2_TOL; the others are
+# printed only. The last puts the logits' standard deviation where phase
 # cond128 finds it in a step at the seed's weights: about 7e3 in the
 # generator's up0, 0.3-0.36 in the discriminator
 F64_SCALES = {F64_SHAPES[0]: (1, 2, 50), TRAIN_SHAPE: (1, 2), F64_SHAPES[2]: (1, 2, 0.3)}
+# at twice unit scale (logit std about 4x unit's) every shape's drift is held
+# to this: with S's TF32 passes added in one accumulator K2 and K3 read 4.25e-6
+# at (8, 2048, 512, 16, 64) against float64's lse
+BIAS_X2_TOL = 2e-6
 
 
 def float64_attention(theta, phi, g, do):
@@ -655,7 +706,7 @@ def phase_float64(seed, base=None):
     checkout's fused_attention module), the baseline's kernels against
     float64 at F64_SCALES (the backward from the float64 forward's o and lse,
     so that each kernel's own error shows): at unit scale the kernels must not
-    drift toward zero by more than BIAS_TOL. Then the backward from each
+    drift toward zero by more than BIAS_TOL, at twice it BIAS_X2_TOL. Then the backward from each
     side's own forward, as a train step runs it (a kernel's logits rounded
     otherwise than float64's then shift p against the float64 lse no more):
     at every scale the kernels' RMS error at most OWN_RMS_TOL times the plain
@@ -696,12 +747,13 @@ def phase_float64(seed, base=None):
                       f"its own forward: " + "; ".join(
                           f"{w} rms {st['rms']:.3g} bias {st['bias']:.3g}"
                           for w, st in own_stats.items()))
-                if name == "kernels" and scale == 1:
+                if name == "kernels" and scale in (1, 2):
                     worst = max(abs(st["bias"]) for st in stats.values())
-                    print(f"phase float64: kernels at {shape}: largest drift {worst:.3g} "
-                          f"(tol {BIAS_TOL[shape]:.3g})")
-                    check(worst <= BIAS_TOL[shape],
-                          f"the kernels drift toward zero at {shape}: {stats}")
+                    tol = BIAS_TOL[shape] if scale == 1 else BIAS_X2_TOL
+                    print(f"phase float64: kernels at {shape}, inputs x{scale}: largest "
+                          f"drift {worst:.3g} (tol {tol:.3g})")
+                    check(worst <= tol, f"the kernels drift toward zero at {shape} "
+                          f"x{scale}: {stats}")
             held = [w for w, e in own_rms["plain"].items() if e <= WELL_CONDITIONED]
             ratio = max(own_rms["kernels"][w] / own_rms["plain"][w] for w in held)
             print(f"phase float64: at {shape}, inputs x{scale}, the kernels' backward from their "
@@ -726,8 +778,13 @@ def load_baseline(root):
 
 def phase_compare(base, seed):
     """K1, K2 and K3 of the baseline checkout (its fused_attention module) and
-    of this one, float32, timed in turns on the same inputs, each checked
-    against this one's plain version."""
+    of this one, in float32 and bfloat16, timed in turns on the same inputs,
+    each checked against this one's plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        compare_dtype(base, seed, dtype)
+
+
+def compare_dtype(base, seed, dtype):
     this = sys.modules[fused_attention.__module__]
     for name, plain_fn, shapes in (
             ("fused_attention", fused_attention_reference,
@@ -740,8 +797,8 @@ def phase_compare(base, seed):
             if shape[3] not in base.SUPPORTED_DV:
                 print(f"phase compare: the baseline has no kernel at (d, dv) = {shape[3:]}")
                 continue
-            args = (attention_inputs(shape, torch.float32, seed) if name == "fused_attention"
-                    else bwd_inputs(shape, torch.float32, seed))
+            args = (attention_inputs(shape, dtype, seed) if name == "fused_attention"
+                    else bwd_inputs(shape, dtype, seed))
             plain = plain_fn(*args)
             times = {"baseline": [], "this": []}
             for tag, mod in (("baseline", base), ("this", this), ("this", this),
@@ -752,7 +809,7 @@ def phase_compare(base, seed):
                           zip(plain if isinstance(plain, tuple) else (plain,),
                               got if isinstance(got, tuple) else (got,)))
                 times[tag].append((cuda_ms(fn), graph_ms(fn), err))
-            print(f"phase compare: {name} at {shape} float32, (ms, ms in a CUDA graph, "
+            print(f"phase compare: {name} at {shape} {str(dtype)[6:]}, (ms, ms in a CUDA graph, "
                   f"max|diff| from plain) in the order baseline, this, this, baseline: "
                   f"{times['baseline'][0]} {times['this'][0]} {times['this'][1]} "
                   f"{times['baseline'][1]}")
@@ -767,10 +824,17 @@ def mixed_captions(n, seed):
     return out
 
 
-def phase_serve(seed):
-    """The flagship service on the card. Returns (launches, ms per video)."""
+# the service in bf16 against itself under no_kernel(): the float video within
+# 2e-2 (K1's o rounded to bf16 and every layer after it), uint8 within 2 levels
+SERVE_TOL = {False: (1e-4, 1), True: (2e-2, 2)}
+
+
+def phase_serve(seed, bf16=False, phase="serve"):
+    """The flagship service on the card, in bf16 with `bf16`. Returns
+    (launches, ms per video)."""
     vocab = build_vocab(moving_digit_captions(1000, seed))
-    svc = GeneratorService.from_seed(vocab, seed=seed, batch_size=BATCH, device="cuda")
+    svc = GeneratorService.from_seed(vocab, seed=seed, batch_size=BATCH, device="cuda",
+                                     bf16=bf16)
     attns = [m for m in svc.gan.gen.modules() if isinstance(m, Attention)]
     check(len(attns) == 1, f"flagship generator has {len(attns)} Attention blocks")
     with torch.no_grad():
@@ -779,17 +843,20 @@ def phase_serve(seed):
     captions = mixed_captions(NUM_CAPTIONS, seed)
     n, chunks = svc._chunks(captions)
     lengths = sorted(set(svc._tokenize(captions)[1].tolist()))
-    print(f"phase serve: {n} captions in {len(chunks)} chunks of {BATCH}, "
+    print(f"phase {phase}: {n} captions in {len(chunks)} chunks of {BATCH}, "
           f"token lengths {lengths}")
     check(len(lengths) > 1, "caption lengths are not mixed")
 
     svc.generate(sentences=captions, seed=seed + 1)           # warm-up: cuDNN, kernel load
     torch.cuda.synchronize()
-    fused_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = svc.generate(sentences=captions, seed=seed)         # ends in the copy to the host
     dt = time.perf_counter() - t0
     launches = fused_attention.launches
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    check(fused_attention.dtype_launches[dtype] == launches,
+          f"the service launched K1's {fused_attention.dtype_launches} instantiations")
 
     check(out.dtype.name == "uint8" and out.shape == (NUM_CAPTIONS, 16, 64, 64, 3),
           f"service returned {out.dtype} {out.shape}")
@@ -808,11 +875,12 @@ def phase_serve(seed):
     with no_kernel():
         plain_u8 = svc.generate(sentences=captions, seed=seed)
     u8_diff = int(abs(out.astype(int) - plain_u8.astype(int)).max())
-    print(f"phase serve: kernel vs plain attention: float max|diff| {worst:.3g} "
-          f"(tol 1e-4), uint8 max|diff| {u8_diff} (tol 1)")
-    check(worst <= 1e-4 and u8_diff <= 1, "the service disagrees with its plain version")
+    tol, u8_tol = SERVE_TOL[bf16]
+    print(f"phase {phase}: kernel vs plain attention: float max|diff| {worst:.3g} "
+          f"(tol {tol}), uint8 max|diff| {u8_diff} (tol {u8_tol})")
+    check(worst <= tol and u8_diff <= u8_tol, "the service disagrees with its plain version")
     ms_per_video = 1e3 * dt / NUM_CAPTIONS
-    print(f"phase serve: uint8 {out.shape}, attention_fwd launches {launches}, "
+    print(f"phase {phase}: uint8 {out.shape}, attention_fwd launches {launches}, "
           f"{ms_per_video:.3f} ms/video, {NUM_CAPTIONS / dt:.3f} videos/s")
     return launches, ms_per_video
 
@@ -925,10 +993,14 @@ def cli_argv(root, seed, *extra):
 class StepRecorder:
     """Wraps TrainStep.__call__ while installed: per step its launches, its
     metrics (fetched), whether it carried the GP, and its host-clock ms with
-    the device synchronized; keeps the last step object and batch."""
+    the device synchronized; keeps the last step object and batch. With
+    `snapshot`, also a device copy of the state before each step, and that of
+    the first step whose metrics are not finite (`bad`: its iteration, the
+    state before it and its batch)."""
 
-    def __init__(self):
+    def __init__(self, snapshot=False):
         self.steps, self.step, self.batch = [], None, None
+        self.snapshot, self.bad = snapshot, None
         self._orig = TrainStep.__call__
 
     def __enter__(self):
@@ -937,11 +1009,15 @@ class StepRecorder:
         def call(step, batch, draws=None):
             it = step.step
             gp = step.config.gp_lambda > 0 and it % step.config.gp_every == 0
+            state = (checkpoint.tree_map(checkpoint._snapshot_leaf, torch_state_to_jax(step))
+                     if rec.snapshot and rec.bad is None else None)
             torch.cuda.synchronize()
             before = counts()
             t0 = time.perf_counter()
             out = rec._orig(step, batch, draws)
             metrics = {k: float(v) for k, v in out.items()}
+            if state is not None and not all(math.isfinite(v) for v in metrics.values()):
+                rec.bad = (it, state, batch)
             ms = 1e3 * (time.perf_counter() - t0)
             launched = {k: v - before[k] for k, v in counts().items()}
             rec.steps.append({"iteration": it, "gp": gp, "ms": ms,
@@ -956,12 +1032,17 @@ class StepRecorder:
         TrainStep.__call__ = self._orig
 
 
-def _flat(tree, prefix=""):
+def leaves(tree, prefix=""):
+    """(path, leaf) of a tree of dicts."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _flat(v, f"{prefix}/{k}")
+            yield from leaves(v, f"{prefix}/{k}")
         elif v is not None:
-            yield f"{prefix}/{k}", np.asarray(v)
+            yield f"{prefix}/{k}", v
+
+
+def _flat(tree):
+    return ((k, np.asarray(v)) for k, v in leaves(tree))
 
 
 def same_tree(a, b, what):
@@ -974,9 +1055,7 @@ def same_tree(a, b, what):
 
 def phase_cli(seed):
     """The training CLI at the flagship's width; returns its launch counts."""
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="cli_smoke_", dir=build))
+    root = smoke_dir("cli_smoke_")
     try:
         return _phase_cli(root, seed)
     finally:
@@ -1074,14 +1153,14 @@ def _phase_cli(root, seed):
     check(step.config.gp_lambda > 0 and step.step % step.config.gp_every == 0,
           "the resumed state's next step carries no GP")
     compare_kernel_and_plain_cli_step(step, resumed.batch)
-    time_cli_steps(resumed.step, resumed.batch)
+    step_ms = time_cli_steps(resumed.step, resumed.batch)
     gen = resumed.step.gan.gen
     avg = ema_mod.init_ema(gen)
     update = ema_mod.make_ema_update(0.999)
     ema_ms = cuda_ms(lambda: update(avg, gen))
     print(f"phase cli: EMA update of the generator's "
           f"{sum(p.numel() for p in gen.parameters())} parameters {ema_ms:.4f} ms")
-    return totals
+    return totals, step_ms
 
 
 def _attention64(theta, phi, g, use_kernel=True):
@@ -1185,6 +1264,17 @@ def compare_kernel_and_plain_cli_step(step, batch, phase="cli"):
     check(loss_err <= 1e-4 and ok, f"the {phase} step disagrees with no_kernel()")
 
 
+def profile_steps(step, batch, n, phase):
+    """n steps of `step` under torch.profiler (bench.profile): device ms per
+    step, the busy share and the top operators, printed; returns the dict."""
+    prof = bench.profile(step, batch, n)
+    print(f"phase {phase}: {n} steps profiled: {prof['device_ms_per_step']:.2f} device ms per "
+          f"step of {prof['wall_ms_per_step']:.2f} on the host clock, busy share "
+          f"{prof['device_busy_share']:.3f}; top operators by device ms: " + ", ".join(
+              f"{o['name']} {o['device_ms_per_step']:.2f}" for o in prof["top_ops"][:6]))
+    return prof
+
+
 def time_cli_steps(step, batch, n=8, phase="cli"):
     """n steps of the CLI's TrainStep on one batch, each timed alone on the
     host clock between device synchronizations (no checkpoint or sampling
@@ -1224,7 +1314,8 @@ COND128_SCALES = len(COND128_FRAME_SIZES)
 COND128_SERVE_SAMPLES = 16
 
 
-def cond128_argv(root, seed):
+def cond128_argv(root, seed, out=None):
+    out = out or root / "out"
     data = json.dumps({"class": "txt2vid_tpu.data.packed.packed_dataset",
                        "args": {"data": str(root / "videos.t2vc"), "num_frames": COND128_FRAMES}})
     return ["--G", COND128_G, "--D", COND128_D, "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
@@ -1239,22 +1330,21 @@ def cond128_argv(root, seed):
             "--seed", str(seed), "--log_period", "1",
             "--save_model_period", str(COND128_STEPS),
             "--save_example_period", str(COND128_STEPS), "--sample_batch_size", "8",
-            "--out", str(root / "out"), "--out_samples", str(root / "out" / "samples")]
+            "--out", str(out), "--out_samples", str(out / "samples")]
 
 
-def phase_cond128(seed):
-    """The cond-128 flagship's command line on the card, then its checkpoint
-    served; returns its launch counts."""
+def smoke_dir(prefix):
+    """A new directory under build/ (gitignored), for a phase's data."""
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
-    root = Path(tempfile.mkdtemp(prefix="cond128_smoke_", dir=build))
-    try:
-        return _phase_cond128(root, seed)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    return Path(tempfile.mkdtemp(prefix=prefix, dir=build))
 
 
-def _phase_cond128(root, seed):
+def cond128_data(root, seed):
+    """COND128_CLIPS packed 32x128x128x1 clips and a vocabulary under root,
+    written once (phases cond128 and bf16 share them)."""
+    if (root / "vocab.pickle").exists():
+        return
     t0 = time.perf_counter()
     size = COND128_FRAME_SIZES[-1]
     generate_examples(root / "videos", root / "sent.pickle", num_examples=COND128_CLIPS,
@@ -1270,6 +1360,15 @@ def _phase_cond128(root, seed):
           f"{len(load_pickle(root / 'vocab.pickle'))} words, in "
           f"{time.perf_counter() - t0:.2f} s")
 
+
+def phase_cond128(seed, root):
+    """The cond-128 flagship's command line on the card, then its checkpoint
+    served; returns its launch counts. Its data stay in root for phase bf16."""
+    cond128_data(root, seed)
+    return _phase_cond128(root, seed)
+
+
+def _phase_cond128(root, seed):
     readers = []
     reader_init = packed.PackedReader.__init__
 
@@ -1329,7 +1428,7 @@ def _phase_cond128(root, seed):
 
     compare_kernel_and_plain_cli_step(step, batch, phase="cond128")
     cond128_memory(step, batch)
-    time_cli_steps(step, batch, n=10, phase="cond128")
+    time_cli_steps(step, batch, n=6, phase="cond128")
     serve = cond128_serve(root, latest, seed)
     return {"launches": totals, "per_step": want, "serve_launches": serve}
 
@@ -1449,6 +1548,365 @@ def cond128_serve(root, weights, seed):
     return launches
 
 
+# phase bf16. The 64-px flagship's bf16 command line, scripts/r4_ema64.sh:38-52
+# verbatim but for the data paths, --sent_weights (the encoder starts from the
+# seed), --epochs and the periods: 1-channel G and proj-head D, GP 0.5 every
+# step, EMA, batch 40, --bf16 --bf16_nu; on packed 16x64x64x1 clips the port
+# writes
+R4_G = ('{"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen", "args": '
+        '{"num_channels": 1, "num_frames": 16}}')
+R4_D = ('{"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim", "args": '
+        '{"num_channels": 1, "cond_head": "proj"}}')
+R4_FLAGS = ("--bf16", "--bf16_nu")
+# r9's run_chunk bf16 (scripts/r9_session.sh:55-78)
+R9_BF16_FLAGS = ("--bf16", "--bf16_nu", "--bf16_params")
+BF16_CLIPS, BF16_EPOCHS = 80, 3
+BF16_STEPS = BF16_EPOCHS * BF16_CLIPS // bench.BATCH
+# a bf16 step with the kernels against one under no_kernel(), both against a
+# float32 step of the same state: the kernels' Adam first moments no further
+# from it than BF16_STEP_RATIO times the plain step's, the losses within
+# BF16_LOSS_TOL of each other (bf16's rounding of a logit)
+BF16_STEP_RATIO, BF16_LOSS_TOL = 2.0, 2e-2
+
+
+def r4_argv(root, seed, out, *extra):
+    data = json.dumps({"class": "txt2vid_tpu.data.packed.packed_dataset",
+                       "args": {"data": str(root / "videos.t2vc"), "num_frames": 16}})
+    return ["--G", R4_G, "--D", R4_D, "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+            "--data", data, "--anno", str(root / "sent.pickle"),
+            "--vocab", str(root / "vocab.pickle"), "--frame_sizes", "8", "16", "32", "64",
+            "--subsample_input", "--num_channels", "1",
+            "--D_loss", "txt2vid_tpu.gan.losses.RSGANLoss", "--gp_lambda", "0.5",
+            "--G_lr", "0.0002", "--D_lr", "0.0002", "--G_beta2", "0.999", "--D_beta2", "0.999",
+            "--g_ema", "0.999", "--batch_size", str(bench.BATCH), "--seed", str(seed),
+            "--log_period", "1", "--save_model_period", str(BF16_STEPS),
+            "--save_example_period", str(BF16_STEPS), "--sample_batch_size", "8",
+            "--workers", "2", "--out", str(out), "--out_samples", str(out / "samples"), *extra]
+
+
+def set_compute_dtype(modules, dtype):
+    """Every module's compute dtype (the layers' compute_dtype, the models'
+    dtype) set to `dtype`; returns the old ones for restore_compute_dtype."""
+    old = []
+    for module in modules:
+        for m in module.modules():
+            for attr in ("compute_dtype", "dtype"):
+                if attr in vars(m):
+                    old.append((m, attr, vars(m)[attr]))
+                    setattr(m, attr, dtype)
+    return old
+
+
+def restore_compute_dtype(old):
+    for m, attr, value in old:
+        setattr(m, attr, value)
+
+
+def float32_step(step):
+    """A float32 TrainStep over the same modules (set to compute in float32
+    by the caller) with torch's Adam: the reference of a bf16 step."""
+    def hyper(opt):
+        g = opt.param_groups[0]
+        b1, b2 = g["betas"] if "betas" in g else (g["b1"], g["b2"])
+        return g["lr"], b1, b2
+    gan = step.gan
+    opt_g = adam(gan.gen.parameters(), *hyper(step.opt_g))
+    opt_d = adam([p for d in gan.discrims for p in d.parameters()], *hyper(step.opt_d))
+    return TrainStep(gan, step.losses, opt_g, opt_d,
+                     dataclasses.replace(step.config, compute_dtype=None), step.seed)
+
+
+def compare_bf16_step(step, batch, phase):
+    """One bf16 step from one state and set of draws, every attention gamma 1:
+    with the kernels, under no_kernel(), and in float32 (no_kernel(), the
+    same modules computing in float32, torch's Adam). Holds the kernels'
+    Adam first moments to BF16_STEP_RATIO x the plain step's distance from
+    the float32 step's, and the two bf16 steps' losses to BF16_LOSS_TOL.
+    Returns the metrics of the three runs."""
+    modules = {"G": step.gan.gen, "D": step.gan.discrims[0]}
+    with torch.no_grad():
+        for m in modules.values():
+            for a in m.modules():
+                if isinstance(a, (Attention, Attention3d)):
+                    a.gamma.fill_(1.0)
+    gp = step.config.gp_lambda > 0 and step.step % step.config.gp_every == 0
+    start = checkpoint.to_host(torch_state_to_jax(step))
+    draws = step.draw(batch["video"].shape[0], batch["video"].device)
+
+    def run(mode):
+        s = step
+        old = None
+        if mode == "float32":
+            old = set_compute_dtype(modules.values(), None)
+            s = float32_step(step)
+        try:
+            jax_state_to_torch(start, s)
+            with (contextlib.nullcontext() if mode == "kernel" else no_kernel()):
+                m = {k: float(v) for k, v in s(batch, draws).items()}
+            mom = {k: {n: opt.state[p]["exp_avg"].float().clone()
+                       for n, p in modules[k].named_parameters()}
+                   for k, opt in (("G", s.opt_g), ("D", s.opt_d))}
+        finally:
+            if old is not None:
+                restore_compute_dtype(old)
+        return m, mom
+
+    runs = {mode: run(mode) for mode in ("kernel", "plain", "float32")}
+    jax_state_to_torch(start, step)
+    ref = runs["float32"][1]
+
+    def distance(mom):
+        w, where = 0.0, None
+        for side in modules:
+            scales = leaf_scales(ref[side])
+            for n, r in ref[side].items():
+                err = float((r - mom[side][n]).abs().max()) / scales[n]
+                if err > w:
+                    w, where = err, f"{side} {n}"
+        return w, where
+
+    dist = {mode: distance(runs[mode][1]) for mode in ("kernel", "plain")}
+    finite = all(math.isfinite(v) for mode in runs for v in runs[mode][0].values())
+    loss_err = max(abs(runs["kernel"][0][k] - runs["plain"][0][k]) / abs(runs["plain"][0][k])
+                   for k in ("loss_d", "loss_g"))
+    ok = finite and loss_err <= BF16_LOSS_TOL and \
+        dist["kernel"][0] <= BF16_STEP_RATIO * dist["plain"][0]
+    print(f"phase {phase}: one bf16 {'GP' if gp else 'plain'} step from one state, kernels / "
+          f"no_kernel() / float32: {runs['kernel'][0]} / {runs['plain'][0]} / "
+          f"{runs['float32'][0]}; losses rel diff {loss_err:.3g} (tol {BF16_LOSS_TOL}); Adam "
+          f"first moments' distance from the float32 step (max|diff| / leaf scale): kernels "
+          f"{dist['kernel'][0]:.4g} at {dist['kernel'][1]}, no_kernel() {dist['plain'][0]:.4g} "
+          f"at {dist['plain'][1]} (tol {BF16_STEP_RATIO}x no_kernel()'s): "
+          f"{'ok' if ok else 'DISAGREES'}")
+    check(ok, f"the {phase} bf16 step disagrees with no_kernel()")
+    return runs
+
+
+def moment_dtypes(path):
+    """The storage of a checkpoint's Adam moments: {"mu"/"nu": set of dtype
+    names} over both optimizers, read without rounding bf16 to float32."""
+    with open(path, "rb") as f:
+        raw = msgpack.unpackb(f.read(), bf16_bits=True)
+    out = {"mu": set(), "nu": set(), "params": set()}
+    for opt in ("opt_g_state", "opt_d_state"):
+        for key in ("mu", "nu"):
+            for _, leaf in leaves(raw[opt]["0"][key]):
+                out[key].add("bfloat16" if isinstance(leaf, msgpack.BFloat16Array)
+                             else leaf.dtype.name)
+    for _, leaf in leaves(raw["g_vars"]["params"]):
+        out["params"].add(leaf.dtype.name)
+    return out
+
+
+def run_cli(argv, phase, want_launches, dtype, snapshot=False):
+    """train.gan.main in-process on `argv`, TF32 on before it and checked off
+    after; every step's metrics finite and launches `want_launches`, all of
+    the `dtype` instantiations. Returns the StepRecorder."""
+    tf32_on()
+    zero_counts()
+    with StepRecorder(snapshot) as rec:
+        train_gan.main(train_gan.build_parser().parse_args(argv))
+    check_tf32_off(phase)
+    for r in rec.steps:
+        print(f"phase {phase}: step {r['iteration']} ({'GP' if r['gp'] else 'plain'}): "
+              f"{r['ms']:.2f} ms, {r['metrics']}, launches {r['launches']}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"{phase} step {r['iteration']}: non-finite {r['metrics']}")
+        check(r["launches"] == want_launches, f"{phase} step {r['iteration']}: launches "
+              f"{r['launches']}, expected {want_launches}")
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    check(not any(counts(other).values()), f"{phase}: {other} kernels launched: "
+          f"{counts(other)}")
+    return rec
+
+
+def bf16_cli(root, seed, f32_ms):
+    """r4_ema64's bf16 command line: 6 steps; --resume for 2 under the
+    float32 config and 2 more under the bf16 one; the checkpoints' moments in
+    their config's dtype under flax's names; a GP and a plain step timed
+    beside float32's; one step against no_kernel() and float32. Returns the
+    bf16 launches of the first run."""
+    t0 = time.perf_counter()
+    sents = generate_examples(root / "videos", root / "sent.pickle", num_examples=BF16_CLIPS,
+                              frame_size=(64, 64), num_frames=16, seed=seed, num_channels=1)
+    packed.pack_directory(root / "videos", root / "videos.t2vc")
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab([c for v in sents.values() for c in v]), f)
+    print(f"phase bf16: {BF16_CLIPS} clips of 16x64x64x1 packed, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = root / "out"
+    n_steps = BF16_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = run_cli(r4_argv(root, seed, out, *R4_FLAGS, "--epochs", str(BF16_EPOCHS)),
+                  "bf16", TRAIN_LAUNCHES, torch.bfloat16)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts(torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(rec.steps) == n_steps and all(r["gp"] for r in rec.steps),
+          f"{len(rec.steps)} steps run ({n_steps} expected, each with the GP)")
+    step = rec.step
+    gen, disc = step.gan.gen, step.gan.discrims[0]
+    check(gen.dtype == disc.dtype == torch.bfloat16 and step.config.compute_dtype is None,
+          "r4's flags did not build bf16 G and D")
+    check(all(p.dtype == torch.float32 for m in (gen, disc, step.gan.cond_encoder)
+              for p in m.parameters()), "a stored parameter is not float32")
+    latest = checkpoint.latest_checkpoint(out)
+    check(latest is not None and Path(latest).name.startswith(f"iter_{n_steps}_"),
+          f"the last checkpoint is {latest}")
+    dtypes = moment_dtypes(latest)
+    check(dtypes == {"mu": {"bfloat16"}, "nu": {"bfloat16"}, "params": {"float32"}},
+          f"{Path(latest).name} holds {dtypes}")
+    mem = checkpoint.to_host(torch_state_to_jax(step))
+    n_leaves = same_tree(mem, checkpoint.restore_state(mem, latest), "bf16 checkpoint")
+    print(f"phase bf16: {n_steps} steps of r4_ema64's command line (--bf16 --bf16_nu, GP "
+          f"every step) in {run_s:.2f} s, bf16 launches {launches}; peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); {Path(latest).name} ({Path(latest).stat().st_size} "
+          f"bytes) reads back bit for bit ({n_leaves} leaves), moments {dtypes}")
+
+    # --resume under the float32 config from the bf16 checkpoint, then under
+    # the bf16 one from the float32 checkpoint that run wrote
+    chain = [("float32", ()), ("bf16", R4_FLAGS)]
+    resumed = {}
+    for i, (name, flags) in enumerate(chain):
+        want_dtype = torch.bfloat16 if flags else torch.float32
+        r = run_cli(r4_argv(root, seed, out, *flags, "--epochs", "1", "--resume"),
+                    f"bf16 resume {name}", TRAIN_LAUNCHES, want_dtype)
+        first = n_steps + 2 * i
+        its = [s["iteration"] for s in r.steps]
+        check(its == [first, first + 1] and r.step.step == first + 2,
+              f"--resume under {name} ran counters {its}")
+        latest = checkpoint.latest_checkpoint(out)
+        dtypes = moment_dtypes(latest)
+        want = {"bfloat16"} if flags else {"float32"}
+        check(dtypes["mu"] == dtypes["nu"] == want, f"{Path(latest).name} holds {dtypes}")
+        print(f"phase bf16: --resume under the {name} config ran iterations "
+              f"{first + 1}-{first + 2} from the previous run's checkpoint; "
+              f"{Path(latest).name} holds moments {dtypes['mu']}")
+        resumed[name] = r
+
+    times = {}
+    for name in ("bf16", "float32"):
+        s = resumed[name].step
+        s.config = dataclasses.replace(s.config, gp_every=2)   # GP and plain steps
+        times[name] = time_cli_steps(s, resumed[name].batch, n=6,
+                                     phase=f"bf16 ({name} config)")
+        s.config = dataclasses.replace(s.config, gp_every=1)
+    print(f"phase bf16: r4_ema64's step, GP / plain ms: bf16 {times['bf16'][0]:.2f} / "
+          f"{times['bf16'][1]:.2f}, float32 {times['float32'][0]:.2f} / "
+          f"{times['float32'][1]:.2f} (phase cli's float32 flagship, 3 channels: "
+          f"{f32_ms[0]:.2f} / {f32_ms[1]:.2f})")
+    del resumed["float32"]
+    s = resumed["bf16"].step
+    compare_bf16_step(s, resumed["bf16"].batch, "bf16")
+    return launches
+
+
+def bf16_cond128(root, seed):
+    """r9's run_chunk bf16 at cond-128 on phase cond128's packed clips: each
+    step's finiteness, ms and launches, the peak memory; where the steps are
+    finite, one step against no_kernel() and float32; where not, the same
+    step under no_kernel() from the state before the first non-finite one
+    must be non-finite too (then it is the model's, not the kernels')."""
+    cond128_data(root, seed)
+    out = root / "out_bf16"
+    want = train_launches(COND128_SCALES, remat_g=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tf32_on()
+    aborted = None
+    t0 = time.perf_counter()
+    with StepRecorder(snapshot=True) as rec:
+        try:
+            train_gan.main(train_gan.build_parser().parse_args(
+                cond128_argv(root, seed, out) + list(R9_BF16_FLAGS)))
+        except SystemExit as e:     # NanAbort: exit 42, the finding is read below
+            aborted = e.code
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_tf32_off("bf16 cond128")
+    check(aborted in (None, 42), f"the cond-128 bf16 run exited {aborted}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts(torch.bfloat16)
+    check(not any(counts(torch.float32).values()), f"float32 kernels launched: {counts()}")
+    for r in rec.steps:
+        finite = all(math.isfinite(v) for v in r["metrics"].values())
+        print(f"phase bf16 cond128: step {r['iteration']} ({'GP' if r['gp'] else 'plain'}): "
+              f"{'finite' if finite else 'NOT FINITE'}, {r['ms']:.2f} ms, {r['metrics']}, "
+              f"launches {r['launches']}")
+        check(r["launches"] == want, f"bf16 cond128 step {r['iteration']}: launches "
+              f"{r['launches']}, expected {want} (remat in G)")
+    step = rec.step
+    check(step.gan.gen.dtype == torch.bfloat16
+          and step.config.compute_dtype == torch.bfloat16, "r9's bf16 flags did not apply")
+    ms = [r["ms"] for r in rec.steps[2:]]
+    print(f"phase bf16 cond128: r9's run_chunk bf16, {len(rec.steps)} steps in {run_s:.2f} s "
+          f"({'exit 42' if aborted else 'to the end'}); ms per step after 2 "
+          f"{ms} (median {statistics.median(ms) if ms else float('nan'):.2f}); peak memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB); bf16 launches {launches}")
+    if rec.bad is None:
+        check(len(rec.steps) == COND128_STEPS, f"{len(rec.steps)} steps run")
+        compare_bf16_step(step, rec.batch, "bf16 cond128")
+        profile_steps(step, rec.batch, 1, "bf16 cond128")
+        return {"launches": launches, "finite": True}
+    it, state, batch = rec.bad
+    jax_state_to_torch(checkpoint.to_host(state), step)
+    with no_kernel():
+        plain = {k: float(v) for k, v in step(batch).items()}
+    plain_finite = all(math.isfinite(v) for v in plain.values())
+    print(f"phase bf16 cond128: step {it} was not finite with the kernels; the same step "
+          f"under no_kernel() from the state before it: {plain} "
+          f"({'finite' if plain_finite else 'not finite: the model, not the kernels'})")
+    check(not plain_finite, "the cond-128 bf16 step is non-finite with the kernels only")
+    return {"launches": launches, "finite": False}
+
+
+def bf16_bench(seed):
+    """The port's bench in float32 and with the JAX bench's bf16 stack."""
+    out = {}
+    for name, flags in (("f32", []), ("bf16 stack", ["--bf16", "--bf16_nu", "--bf16_params",
+                                                      "--shared_gen_fwd"])):
+        line, prof = bench.main(bench.build_parser().parse_args(
+            ["--seed", str(seed), "--device", "cuda", "--profile", "3", *flags]))
+        out[name] = line, prof
+    print("phase bf16: bench ms/step, device ms/step, busy share, peak bytes: " + "; ".join(
+        f"{name} ({line['dtype']}) {line['ms_per_step']:.2f}, {prof['device_ms_per_step']:.2f}, "
+        f"{prof['device_busy_share']:.3f}, {line['peak_memory_bytes']}"
+        for name, (line, prof) in out.items()))
+    return out
+
+
+def phase_bf16(seed, cond_root, f32_cli_ms, f32_serve_ms):
+    """bfloat16 compute through the port's entry points. Returns the bf16
+    launches of the 64-px command line (the main path), of the cond-128
+    chunk and of serving."""
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        print(f"phase bf16: {what} in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+
+    root = smoke_dir("bf16_smoke_")
+    try:
+        cli = bf16_cli(root, seed, f32_cli_ms)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lap("the 64-px command line")
+    cond = bf16_cond128(cond_root, seed)
+    lap("the cond-128 chunk")
+    serve_launches, serve_ms = phase_serve(seed, bf16=True, phase="bf16 serve")
+    print(f"phase bf16 serve: {serve_ms:.3f} ms/video in bf16, {f32_serve_ms:.3f} in float32 "
+          f"(phase serve)")
+    lap("the service")
+    bf16_bench(seed)
+    lap("the bench")
+    return {"cli": cli, "cond128": cond["launches"], "serve": serve_launches}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1466,22 +1924,31 @@ def main():
 
     name, smi = timed("device", phase_device)
     tc = timed("build", phase_build)
-    records = timed("kernels", lambda: [phase_attention(args.seed),
-                                        *phase_attention_bwd(args.seed)])
     base = None
     if args.baseline:
         base = load_baseline(args.baseline)
         print(f"phase compare: baseline {args.baseline} built in "
               f"{base._build.build_all():.2f} s")
+
+    def kernel_records():
+        fwd, (bwd, bwd_bf16) = phase_attention(args.seed), phase_attention_bwd(args.seed)
+        return [fwd[0], *bwd], [fwd[1], *bwd_bf16]
+
+    records, bf16_records = timed("kernels", kernel_records)
     timed("float64", phase_float64, args.seed, base)
     if base is not None:
         timed("compare", phase_compare, base, args.seed)
-    for r in records:
-        r["tc_instructions"] = tc[r["name"]]
-    serve_launches, _ = timed("serve", phase_serve, args.seed)
+    serve_launches, serve_ms = timed("serve", phase_serve, args.seed)
     train = timed("train", phase_train, args.seed)
-    cli = timed("cli", phase_cli, args.seed)
-    cond = timed("cond128", phase_cond128, args.seed)
+    cli, cli_ms = timed("cli", phase_cli, args.seed)
+    cond_root = smoke_dir("cond128_smoke_")
+    try:
+        cond = timed("cond128", phase_cond128, args.seed, cond_root)
+        bf16 = timed("bf16", phase_bf16, args.seed, cond_root, cli_ms, serve_ms)
+    finally:
+        shutil.rmtree(cond_root, ignore_errors=True)
+    for r in records + bf16_records:
+        r["tc_instructions"] = tc[r["name"]]
     records[0]["launches"] = serve_launches
     for kernel, r in (("attention_fwd", records[0]["train_shape"]),
                       *((r["name"], r) for r in records[1:])):
@@ -1492,8 +1959,17 @@ def main():
         r["cond128_launches"] = cond["launches"][r["name"]]
         r["cond128_launches_per_step"] = cond["per_step"][r["name"]]
     records[0]["cond128_serve_launches"] = cond["serve_launches"]
+    # the bf16 instantiations: launches of phase bf16's 64-px command line (its
+    # first run of 6 steps), of its cond-128 chunk and of its service
+    for r in bf16_records:
+        r["launches"] = bf16["cli"][r["name"]]
+        r["launches_per_step"] = TRAIN_LAUNCHES[r["name"]]
+        r["cond128_launches"] = bf16["cond128"][r["name"]]
+    bf16_records[0]["serve_launches"] = bf16["serve"]
+    check(all(r["launches"] for r in records + bf16_records),
+          "a kernel was not launched on its main path")
     print(smi)
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + bf16_records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

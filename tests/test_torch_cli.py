@@ -163,13 +163,46 @@ def test_nan_abort_exits_42_and_keeps_the_last_good_checkpoint(data, tmp_path, m
 
 
 @pytest.mark.parametrize("flag", [
-    ["--bf16"], ["--bf16_nu"], ["--bf16_params"], ["--sgd"], ["--end2end"],
+    ["--sgd"], ["--end2end"],
     ["--end2end_d_only"], ["--gen_steps", "2"], ["--sp", "2"], ["--fsdp", "2"],
     ["--multihost"], ["--device_data"], ["--steps_per_dispatch", "2"],
     ["--M", "txt2vid_tpu.models.tcwyt.FrameMap"], ["--img_model"]])
 def test_unported_flags_raise_naming_themselves(data, tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gan.cli(argv(data, tmp_path, *flag))
+
+
+@pytest.mark.parametrize("flag", [["--bf16"], ["--bf16_nu"], ["--bf16_params"]])
+def test_bf16_flags_run(data, tmp_path, monkeypatch, flag):
+    """Each bf16 flag, one epoch of two steps (the GP on the first): --bf16
+    builds G and D in bf16 and stores Adam's first moment bf16, --bf16_nu the
+    second, --bf16_params runs the step from a bf16 parameter copy. The
+    parameters and the caption encoder stay float32, and the checkpoint holds
+    the moments under flax's bfloat16 name."""
+    from flax import serialization
+    made = []
+    orig = gan.build_train_step
+    monkeypatch.setattr(gan, "build_train_step",
+                        lambda *a, **k: made.append(orig(*a, **k)) or made[-1])
+    gan.cli(argv(data, tmp_path, "--epochs", "1", "--batch_size", "8", *flag))
+    (step,) = made
+    assert step.step == 2
+    bf16, nu, params = (flag[0] == f for f in ("--bf16", "--bf16_nu", "--bf16_params"))
+    want = torch.bfloat16 if bf16 else None
+    assert step.gan.gen.dtype == want and step.gan.discrims[0].dtype == want
+    assert step.config.compute_dtype == (torch.bfloat16 if params else None)
+    for m in (step.gan.gen, step.gan.discrims[0], step.gan.cond_encoder):
+        assert all(p.dtype == torch.float32 for p in m.parameters())
+    for opt in (step.opt_g, step.opt_d):
+        for st in opt.state.values():
+            assert st["exp_avg"].dtype == (torch.bfloat16 if bf16 else torch.float32)
+            assert st["exp_avg_sq"].dtype == (torch.bfloat16 if nu else torch.float32)
+    with open(checkpoint.latest_checkpoint(tmp_path), "rb") as f:
+        raw = serialization.msgpack_restore(f.read())
+    adam = raw["opt_g_state"]["0"]
+    assert adam["mu"]["g"]["fc"]["kernel"].dtype.name == ("bfloat16" if bf16 else "float32")
+    assert adam["nu"]["g"]["fc"]["kernel"].dtype.name == ("bfloat16" if nu else "float32")
+    assert np.isfinite(np.asarray(adam["mu"]["g"]["fc"]["kernel"], np.float32)).all()
 
 
 def test_entry_point_needs_a_gpu_unless_asked(data, tmp_path):
@@ -211,8 +244,8 @@ def test_spec_names_resolve_to_the_port(spec, cls):
 
 def test_spec_args_carry_over():
     """use_pallas -> use_kernel, stem_impl dropped, init_method kept for
-    init_from_seed, remat passed through to G and D; dtype raises naming
-    itself."""
+    init_from_seed, remat passed through to G and D; dtype "bfloat16" becomes
+    the modules' torch.bfloat16."""
     d = config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
                               "args": {**D["args"], "use_pallas": False, "stem_impl": "conv",
                                        "remat": True}},
@@ -221,9 +254,12 @@ def test_spec_args_carry_over():
     g = config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
                               "args": {**G["args"], "remat": True}})
     assert g.remat
-    with pytest.raises(NotImplementedError, match="dtype"):
-        config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+    g = config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
                               "args": {**G["args"], "dtype": "bfloat16"}})
+    assert g.dtype == torch.bfloat16 and g.fc.compute_dtype == torch.bfloat16
+    with torch.no_grad():
+        video = g.eval()(torch.randn(2, 16), torch.randn(2, 256))[-1]
+    assert video.dtype == torch.bfloat16 and next(g.parameters()).dtype == torch.float32
     with pytest.raises(NotImplementedError, match="tcwyt"):
         config.create_object("txt2vid_tpu.models.tcwyt.Gen")
 

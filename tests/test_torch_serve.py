@@ -210,13 +210,39 @@ class TestPortService:
         assert line["shape"] == [4, 32, 32, 3] and line["cond"] is True
 
     @pytest.mark.parametrize("flags,what", [
-        (["--bf16"], "--bf16"), (["--format", "gif"], "--format gif"),
-        (["--format", "mp4"], "--format mp4")])
+        (["--format", "gif"], "--format gif"), (["--format", "mp4"], "--format mp4")])
     def test_cli_flags_not_in_the_port_raise(self, flags, what):
         with pytest.raises(NotImplementedError, match=what):
             serve.cli(["--device", "cpu", *flags])
         with pytest.raises(ValueError, match="--G and --D"):
             serve.cli(["--device", "cpu", "--weights", "iter_1"])
+
+
+def test_cli_serves_bf16(trained_run, data, tmp_path):
+    """--bf16 serves the trainer's checkpoint with a bf16 generator (float32
+    parameters and caption encoder): its uint8 videos within 3 levels of the
+    float32 service's, the same z and captions."""
+    argv = ["--device", "cpu", "--weights", trained_run, "--G", json.dumps(CLI_G),
+            "--D", json.dumps(CLI_D), "--sent", json.dumps(CLI_S),
+            "--vocab", str(data / "vocab.pickle"), "--frame_sizes", "8", "16",
+            "--num_frames", "4", "--num_channels", "3", "--batch_size", "2",
+            "--num_samples", "3", "--out_samples", str(tmp_path)]
+    made = []
+    orig = GeneratorService.from_checkpoint.__func__
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(GeneratorService, "from_checkpoint",
+                   classmethod(lambda cls, *a, **k: made.append(orig(cls, *a, **k)) or made[-1]))
+        out = serve.cli(argv + ["--bf16"])
+        ref = serve.cli(argv)
+    svc = made[0]
+    assert svc.gan.gen.dtype == torch.bfloat16 and made[1].gan.gen.dtype is None
+    assert all(p.dtype == torch.float32 for m in (svc.gan.gen, svc.gan.cond_encoder)
+               for p in m.parameters())
+    toks, lens = svc._chunks(SENTENCES)[1][0]
+    assert svc._video(toks, lens, np.zeros((2, 16), np.float32)).dtype == torch.bfloat16
+    assert out.dtype == np.uint8 and out.shape == ref.shape == (3, 4, 16, 16, 3)
+    assert int(np.abs(out.astype(int) - ref.astype(int)).max()) <= 3
+    assert not np.array_equal(out, ref)
 
 
 def _reference_video(tree, ema_tree, vocab, toks, lens, z):

@@ -346,8 +346,7 @@ def test_step_went_through_the_attention_function(steps):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("end2end", True), ("compute_dtype", torch.bfloat16), ("img_model", True),
-    ("gen_steps", 2)])
+    ("end2end", True), ("img_model", True), ("gen_steps", 2)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         check_config(TrainConfig(**{field: value}))
@@ -360,6 +359,40 @@ def test_ported_fields_accepted(field, value):
     """The regularization fields the training CLI's slice ported
     (tests/test_torch_gp_step.py holds them to the JAX step)."""
     check_config(TrainConfig(**{field: value}))
+
+
+def test_compute_dtype_runs_from_a_bf16_parameter_copy():
+    """compute_dtype (--bf16_params): every forward of the step reads bf16
+    weights; the stored parameters, their gradients and Adam's moments stay
+    float32, and the float32 modules compute in float32 (flax's promotion)."""
+    from txt2vid_tpu_torch.ops.initializers import init_from_seed
+    gen = init_from_seed(tganv2.MultiScaleGen(**GEN, with_non_local=True), 1)
+    disc = init_from_seed(tganv2.MultiScaleDiscrim(**DISC), 2)
+    enc = init_from_seed(Seq2Seq(**ENC), 3)
+    step = build_train_step(CondGan(gen, enc, discrims=[disc]), port_losses.RSGANLoss(),
+                            adam(gen.parameters()), adam(disc.parameters()),
+                            TrainConfig(frame_sizes=FRAME_SIZES, subsample_input=True,
+                                        latent_size=GEN["latent_size"],
+                                        compute_dtype=torch.bfloat16))
+    seen = []
+    for conv in (gen.up0.conv1, disc.discrim.stem_conv1):
+        conv.register_forward_hook(
+            lambda m, i, o: seen.append((m.weight.dtype, i[0].dtype, o.dtype)))
+    video, caps, lens = make_batch(2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # beside other test processes, one thread is fastest
+    try:
+        metrics = step({"video": torch.from_numpy(video),
+                        "captions": torch.from_numpy(caps).long(),
+                        "lengths": torch.from_numpy(lens)})
+    finally:
+        torch.set_num_threads(threads)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert seen and set(seen) == {(torch.bfloat16, torch.float32, torch.float32)}
+    for m, opt in ((gen, step.opt_g), (disc, step.opt_d)):
+        for p in m.parameters():
+            assert p.dtype == p.grad.dtype == torch.float32
+            assert opt.state[p]["exp_avg"].dtype == torch.float32
 
 
 def _tiny_port_step(shared, seed=0):

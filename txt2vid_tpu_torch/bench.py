@@ -2,20 +2,30 @@
 on one GPU (the counterpart of the JAX package's bench.py).
 
     python -m txt2vid_tpu_torch.bench [--seed N] [--device cuda]
+        [--bf16] [--bf16_nu] [--bf16_params] [--shared_gen_fwd] [--profile N]
 
 The shape and configuration are bench.py's (:50-52, 128-176): batch 40,
 16-frame 64 px video, frame sizes 8/16/32/64 with the subsample pyramid, RSGAN,
 Adam(2e-4, b1 0.5) for G and D, the flagship conditional generator
 (`tganv2_cond.MultiScaleGen`) and discriminator (`tganv2_cond.MultiScaleDiscrim`)
 and the 4-layer Bi-LSTM caption encoder (vocabulary 64) in the loop, frozen.
-float32 with TF32 off for matmuls and cuDNN; one generator forward per step
-(shared_gen_fwd). Parameters are random by bench.py's rule (:160-173): every
+float32 with TF32 off for matmuls and cuDNN by default; one generator forward
+per step (the port's step always runs one, so --shared_gen_fwd only names
+it). The bf16 flags mean what bench.py's switches do (:94-145): --bf16 builds
+G and D with dtype bf16 and stores Adam's first moment in bf16 (BENCH_BF16),
+--bf16_nu the second moment too (BENCH_NU_BF16), --bf16_params runs the step
+from one bf16 parameter copy (BENCH_BF16_PARAMS). bench.py turns all of them
+on by default; here the default stays float32, so the f32 records stay
+comparable, and the JSON line's "dtype" names what ran (e.g. "bf16+nu+params").
+Parameters are random by bench.py's rule (:160-173): every
 float32 parameter with at least one dimension N(0, 0.02), scalars (the
 attention gammas) 0. Three warm-up steps, then a 5-step and a 25-step run,
 each ended by a host fetch of loss_g; the time per step is the slope between
 them. Prints one JSON line. `--profile N` then traces N more steps with
 torch.profiler and prints a second line: kernel time per step, the device's
-busy share of the wall time, and the operators whose kernels take the most.
+busy share of the wall time, the operators whose kernels take the most, the
+kernels themselves (their names carry their dtypes) and the operators that
+take the most host time.
 """
 
 import argparse
@@ -53,11 +63,20 @@ def randomize_like_bench(module: torch.nn.Module, generator: torch.Generator):
             p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
 
 
-def build(seed: int = 0, batch_size: int = BATCH, device=None):
-    """(TrainStep, batch) for the benchmark's model and data on `device`."""
+def dtype_name(bf16: bool = False, bf16_nu: bool = False, bf16_params: bool = False) -> str:
+    """What a configuration computes in, e.g. "f32", "bf16", "bf16+nu+params"."""
+    return "+".join(["bf16" if bf16 else "f32"] + [name for name, on in (
+        ("nu", bf16_nu), ("params", bf16_params)) if on])
+
+
+def build(seed: int = 0, batch_size: int = BATCH, device=None, bf16: bool = False,
+          bf16_nu: bool = False, bf16_params: bool = False):
+    """(TrainStep, batch) for the benchmark's model and data on `device`, with
+    bench.py's bf16 switches."""
     device = resolve_device(device)
-    gen = tganv2_cond.MultiScaleGen(num_frames=NUM_FRAMES)
-    disc = tganv2_cond.MultiScaleDiscrim()
+    dtype = torch.bfloat16 if bf16 else None
+    gen = tganv2_cond.MultiScaleGen(num_frames=NUM_FRAMES, dtype=dtype)
+    disc = tganv2_cond.MultiScaleDiscrim(dtype=dtype)
     enc = Seq2Seq(vocab_size=VOCAB_SIZE)
     params = torch.Generator().manual_seed(seed + 1)
     for m in (gen, disc, enc):
@@ -65,9 +84,11 @@ def build(seed: int = 0, batch_size: int = BATCH, device=None):
         m.to(device)
     gan = CondGan(gen, enc, discrims=[disc])
     cfg = TrainConfig(frame_sizes=FRAME_SIZES, subsample_input=True, latent_size=256,
-                      shared_gen_fwd=True)
-    step = build_train_step(gan, losses.RSGANLoss(), adam(gen.parameters()),
-                            adam(disc.parameters()), cfg, seed=seed)
+                      shared_gen_fwd=True,
+                      compute_dtype=torch.bfloat16 if bf16_params else None)
+    storage = dict(mu_dtype=dtype, nu_dtype=torch.bfloat16 if bf16_nu else None)
+    step = build_train_step(gan, losses.RSGANLoss(), adam(gen.parameters(), **storage),
+                            adam(disc.parameters(), **storage), cfg, seed=seed)
     rng = np.random.default_rng(seed)
     size = FRAME_SIZES[-1]
     video = rng.standard_normal((batch_size, NUM_FRAMES, size, size, 3),
@@ -91,10 +112,11 @@ def gpu_power_limit():
 
 
 def main(args):
+    """Prints, and returns, the JSON line and (with --profile) the profile's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device(args.device)
-    step, batch = build(args.seed, BATCH, device)
+    step, batch = build(args.seed, BATCH, device, args.bf16, args.bf16_nu, args.bf16_params)
     metrics = None
     for _ in range(WARMUP):
         metrics = step(batch)
@@ -114,24 +136,30 @@ def main(args):
     dt_long, loss_g = run(LONG)
     sec_per_step = (dt_long - dt_short) / (LONG - SHORT)
     cuda = device.type == "cuda"
-    print(json.dumps({
+    line = {
         "metric": METRIC, "value": 1.0 / sec_per_step, "unit": "steps/sec/gpu",
         "ms_per_step": 1e3 * sec_per_step,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
-        "dtype": "f32", "batch_size": BATCH, "num_frames": NUM_FRAMES,
+        "dtype": dtype_name(args.bf16, args.bf16_nu, args.bf16_params),
+        "shared_gen_fwd": True, "batch_size": BATCH, "num_frames": NUM_FRAMES,
         "frame_sizes": list(FRAME_SIZES), "steps": [SHORT, LONG], "warmup": WARMUP,
         "loss_g": loss_g,
         "device": torch.cuda.get_device_name(device) if cuda else str(device),
         "name_power_limit": gpu_power_limit() if cuda else None,
-    }))
-    if args.profile:
-        print(json.dumps(profile(step, batch, args.profile)))
+    }
+    print(json.dumps(line))
+    prof = profile(step, batch, args.profile) if args.profile else None
+    if prof is not None:
+        print(json.dumps(prof))
+    return line, prof
 
 
 def profile(step, batch, n: int, top: int = 12) -> dict:
     """Trace n steps (the last ended by a host fetch): device time per step
     (the sum of the kernels' times), the device's busy share of the wall time,
-    and the `top` operators by the device time of the kernels they launch."""
+    the `top` operators by the device time of the kernels they launch, the
+    `top` kernels by their own device time and the `top` operators by their
+    own host time (the profiler's, which inflates it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -143,26 +171,50 @@ def profile(step, batch, n: int, top: int = 12) -> dict:
             m = step(batch)
         float(m["loss_g"])
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
+    # a record_function range (the optimizer's step) also shows as a device
+    # event spanning its kernels: counted, it would count them twice
+    events = [e for e in prof.key_averages() if not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA)
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
     return {"profile_steps": n, "wall_ms_per_step": 1e3 * wall / n,
             "device_ms_per_step": device_us / 1e3 / n,
             "device_busy_share": device_us / 1e6 / wall,
             "top_ops": [{"name": e.key, "calls_per_step": e.count / n,
                          "device_ms_per_step": e.self_device_time_total / 1e3 / n}
-                        for e in ops]}
+                        for e in ops],
+            "top_kernels": [{"name": e.key, "launches_per_step": e.count / n,
+                             "device_ms_per_step": e.self_device_time_total / 1e3 / n}
+                            for e in kernels],
+            "top_host_ops": [{"name": e.key, "calls_per_step": e.count / n,
+                              "host_ms_per_step": e.self_cpu_time_total / 1e3 / n}
+                             for e in host]}
 
 
-def cli(argv=None):
+def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="then trace N steps with torch.profiler, print a second line")
-    main(p.parse_args(argv))
+    p.add_argument("--bf16", action="store_true",
+                   help="G and D in bfloat16, Adam's first moment stored bfloat16")
+    p.add_argument("--bf16_nu", action="store_true",
+                   help="Adam's second moment stored bfloat16 too")
+    p.add_argument("--bf16_params", action="store_true",
+                   help="one bfloat16 copy of the parameters per step (compute_dtype)")
+    p.add_argument("--shared_gen_fwd", action="store_true",
+                   help="accepted: the port's step always runs one generator forward")
+    return p
+
+
+def cli(argv=None):
+    return main(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

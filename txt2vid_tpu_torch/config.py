@@ -10,14 +10,18 @@ with only the module name changed.
 
 Model args carry over: `use_pallas` becomes `use_kernel` (None -> True),
 `init_method` is kept on the object for ops.initializers.init_from_seed,
-`remat` passes through (models/tganv2.py) and `stem_impl` is accepted and
-dropped (the port has only the conv stem, which holds the same parameters).
-`dtype` other than None raises NotImplementedError naming the arg.
+`remat` passes through (models/tganv2.py), `stem_impl` is accepted and
+dropped (the port has only the conv stem, which holds the same parameters),
+and `dtype` ("bfloat16" or "float32", with or without a "jnp." or
+"jax.numpy." prefix, a dtype object of that name, or a torch dtype) becomes
+the module's torch dtype.
 """
 
 import importlib
 import json
 from pathlib import Path
+
+import torch
 
 # reference dotted paths -> the JAX package's, as txt2vid_tpu/config.py maps them
 LEGACY_ALIASES = {
@@ -69,13 +73,31 @@ def get_class(dotted: str):
         raise
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(dtype):
+    """A model's compute dtype in the port's terms: None, a torch dtype, or the
+    name of bfloat16 / float32 as a JAX spec or jnp writes it."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else getattr(
+        dtype, "name", getattr(dtype, "__name__", repr(dtype)))
+    for prefix in ("jnp.", "jax.numpy."):
+        name = name.removeprefix(prefix)
+    if name not in _DTYPES:
+        raise ValueError(f"model arg dtype={dtype!r}: the port computes in "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
 def _carry_over_args(args: dict) -> tuple[dict, str | None]:
     """The JAX package's model args in the port's terms; returns (args, init_method)."""
     args = dict(args)
-    if args.get("dtype") is not None:
-        raise NotImplementedError(f"model arg dtype={args['dtype']!r}: bf16 compute comes "
-                                  "in a later slice of the port")
-    args.pop("dtype", None)
+    if args.get("dtype") is None:
+        args.pop("dtype", None)
+    else:
+        args["dtype"] = torch_dtype(args["dtype"])
     args.pop("stem_impl", None)
     if "use_pallas" in args:
         use = args.pop("use_pallas")

@@ -44,6 +44,8 @@ import re
 import numpy as np
 import torch
 
+from txt2vid_tpu_torch.utils.msgpack import as_float32
+
 _GEN_PARAM = re.compile(
     r"^(?:(?:fc|clstm/wx0|clstm/cells/w[xh]\d+"
     r"|(?:base/)?up\d+/(?:bn1|bn2|conv1|conv2|conv_identity|attn/(?:theta|phi|g|o))"
@@ -65,7 +67,7 @@ def _flatten(tree, prefix=""):
         if isinstance(v, dict):
             yield from _flatten(v, path)
         else:
-            yield path, np.asarray(v, dtype=np.float32)
+            yield path, as_float32(v)
 
 
 def _tensor(a):
@@ -243,12 +245,13 @@ def jax_to_torch_encoder(params) -> dict:
 # ------------------------------------------------------------- the train state
 
 def _adam_moments(opt, named_params, key):
-    """name -> the optimizer's `key` moment (zeros before the first step) and
-    the step count (0 before it)."""
+    """name -> the optimizer's `key` moment in its storage dtype (zeros before
+    the first step) and the step count (0 before it)."""
     out, count = {}, 0
     for name, p in named_params:
         st = opt.state.get(p, {})
-        out[name] = st[key] if key in st else torch.zeros_like(p)
+        out[name] = (st[key] if key in st
+                     else torch.zeros_like(p, dtype=_storage_dtype(opt, p, key)))
         if "step" in st:
             count = int(st["step"])
     return out, count
@@ -294,8 +297,19 @@ def torch_state_to_jax(step) -> dict:
     }
 
 
+def _storage_dtype(opt, p, key):
+    """The dtype the optimizer stores moment `key` of `p` in: the parameter's
+    for torch's Adam, the storage dtype for ops.optim.AdamStorage."""
+    storage = getattr(opt, "storage_dtype", None)
+    if storage is None:
+        return p.dtype
+    group = next(g for g in opt.param_groups if any(q is p for q in g["params"]))
+    return storage(group, p, key)
+
+
 def _load_adam(opt, named_params, tree, unwrap):
-    """Set each parameter's Adam state from an optax adam state tree."""
+    """Set each parameter's Adam state from an optax adam state tree, each
+    moment rounded to the dtype the optimizer stores it in."""
     adam = tree["0"]
     count = int(np.asarray(adam["count"]))
     mu, nu = unwrap(adam["mu"]), unwrap(adam["nu"])
@@ -303,9 +317,9 @@ def _load_adam(opt, named_params, tree, unwrap):
         if count == 0:
             opt.state.pop(p, None)
             continue
-        opt.state[p] = {"step": torch.tensor(float(count)),
-                        "exp_avg": mu[name].to(p.device, p.dtype).contiguous(),
-                        "exp_avg_sq": nu[name].to(p.device, p.dtype).contiguous()}
+        opt.state[p] = {"step": torch.tensor(float(count)), **{
+            key: moments[name].to(p.device, _storage_dtype(opt, p, key)).contiguous()
+            for key, moments in (("exp_avg", mu), ("exp_avg_sq", nu))}}
 
 
 def load_encoder_vars(enc, txt_vars):

@@ -45,6 +45,9 @@
 //   short of float64 on average on an H100, where the plain float32 version
 //   is unbiased. Each tile's P @ g therefore starts from zero and is added to
 //   the running accumulator with an FMA, which rounds to nearest.
+//   S = theta phi^T takes its passes through mma_rn for the same reason, as
+//   K2 and K3 do, so that the backward's p = exp(s - lse) sees the logits
+//   the forward's lse was taken from.
 // - The ordinary instructions around the MMAs (TF32 splits, softmax,
 //   shared-memory reads) far outnumber them, so the splits are integer
 //   operations and exp2 is the SFU's bare instruction.
@@ -130,7 +133,7 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KD; ++ks)
-        Tr::mma(s[j], qa[ks], Tr::load_b([&](int k, int key) {
+        Tr::mma_rn(s[j], qa[ks], Tr::load_b([&](int k, int key) {
           return k < D ? to_f32(sp[key * SD + k]) : 0.f;
         }, ks * Tr::K, 8 * j, r, c));
     }

@@ -115,6 +115,19 @@ struct Mma<float> {
     pass(c, a.hi, b.lo);
     pass(c, a.hi, b.hi);
   }
+  // c += a b with the two small passes and the large one each summed from
+  // zero and added to c in float32, rounding to nearest. In `mma` every pass
+  // after the first adds into c with the tensor cores' truncation at c's
+  // magnitude, so over d = 16 (two steps) the logits came out about two ulps
+  // short of float64 on average.
+  static __device__ __forceinline__ void mma_rn(float c[4], const A& a, const B& b) {
+    float small[4] = {}, large[4] = {};
+    pass(small, a.lo, b.hi);
+    pass(small, a.hi, b.lo);
+    pass(large, a.hi, b.hi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += large[e] + small[e];
+  }
   static __device__ __forceinline__ A make_a(float v0, float v1, float v2, float v3) {
     A a;
     split(v0, a.hi[0], a.lo[0]);
@@ -171,6 +184,13 @@ struct Mma<__nv_bfloat16> {
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(b.v[0]), "r"(b.v[1]));
+  }
+  // c += a b, summed from zero and added to c rounding to nearest
+  static __device__ __forceinline__ void mma_rn(float c[4], const A& a, const B& b) {
+    float t[4] = {};
+    mma(t, a, b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += t[e];
   }
   template <typename F>
   static __device__ __forceinline__ A load_a(F get, int k0, int r, int c) {

@@ -21,21 +21,33 @@ The D phase carries the JAX step's regularization:
   the grad-norm metric's reduction; a non-finite norm sets them to zeros (not
   None: Adam still steps on zeros, as optax does).
 
+compute_dtype (--bf16_params, train_step.py:97-110,290-307) makes one copy of
+every float32 parameter of G and of the discriminators in that dtype
+(`param_copy`): G's once per step, the discriminators' once per D update and
+once for the G phase, as the JAX step casts its param trees. Every forward
+and backward reads the copy; the gradients flow back through the cast to the
+float32 masters, which the optimizers update. BatchNorm's statistics and the
+caption encoder are not copied. Without a module dtype the layers promote
+the bf16 weights back to the input's float32 (flax's promote_dtype), so
+compute_dtype alone computes in float32 from weights rounded to bf16.
+
 The step counter `step` sets the draws and the lazy-GP phase; a restored
-checkpoint sets it (convert.jax_state_to_torch). gen_steps > 1, end2end,
-img_model and compute_dtype raise NotImplementedError naming the field. The
+checkpoint sets it (convert.jax_state_to_torch). gen_steps > 1, end2end and
+img_model raise NotImplementedError naming the field. The
 step runs one generator forward for either value of shared_gen_fwd: outside
 end2end, which is refused, JAX's two-forward form computes the same numbers
 (its D-phase forward discards its BatchNorm statistics), so the flag changes
 nothing here.
 """
 
+import contextlib
 from dataclasses import dataclass, fields
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from txt2vid_tpu_torch.ops.optim import AdamStorage
 from txt2vid_tpu_torch.ops.subsample import multiscale_pyramid
 from txt2vid_tpu_torch.utils.misc import gen_perm_device
 
@@ -64,7 +76,7 @@ class TrainConfig:
 
 _IMPLEMENTED = {"frame_sizes", "subsample_input", "latent_size", "mean_discrim_loss",
                 "mean_gen_loss", "shared_gen_fwd", "discrim_steps", "gen_steps",
-                "gp_lambda", "gp_every", "gp_quarantine", "clip_grad",
+                "gp_lambda", "gp_every", "gp_quarantine", "clip_grad", "compute_dtype",
                 # only read with end2end, which is refused below
                 "end2end_txt_in_g"}
 
@@ -105,10 +117,43 @@ class Draws:
         return (self.perms, self.alphas) if j == 0 else self.later_d_steps[j - 1]
 
 
-def adam(params, lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999):
-    """torch's Adam with optax.adam's update (eps 1e-8 added to the bias-corrected
-    root of the second moment), float32 moments."""
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8)
+def adam(params, lr: float = 2e-4, b1: float = 0.5, b2: float = 0.999,
+         mu_dtype=None, nu_dtype=None):
+    """optax.adam's update (eps 1e-8 added to the bias-corrected root of the
+    second moment): torch's Adam with float32 moments, or, with a storage
+    dtype for either moment, ops.optim.AdamStorage (--bf16's bf16 mu,
+    --bf16_nu's bf16 nu)."""
+    if mu_dtype is None and nu_dtype is None:
+        return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8)
+    return AdamStorage(params, lr=lr, b1=b1, b2=b2, eps=1e-8, mu_dtype=mu_dtype,
+                       nu_dtype=nu_dtype)
+
+
+@contextlib.contextmanager
+def param_copy(modules, dtype):
+    """Inside the block every float32 parameter of `modules` reads as one copy
+    in `dtype` made on entry (the JAX step's cast_tree): forwards, and
+    backwards run inside the block (remat's recomputations too), use it, and
+    gradients reach the float32 parameters through the cast. Buffers
+    (BatchNorm's statistics) are not copied. dtype None: no copy."""
+    if dtype is None:
+        yield
+        return
+    swapped, seen = [], set()
+    for module in modules:
+        for m in module.modules():
+            if id(m) in seen:
+                continue
+            seen.add(id(m))
+            for name, p in list(m._parameters.items()):
+                if p is not None and p.dtype == torch.float32:
+                    m._parameters[name] = p.to(dtype)
+                    swapped.append((m, name, p))
+    try:
+        yield
+    finally:
+        for m, name, p in swapped:
+            m._parameters[name] = p
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -260,38 +305,47 @@ class TrainStep:
             x, cond, list(cfg.frame_sizes), draws.pyramid_phases, cfg.subsample_input)
 
         gan.gen.train()
-        fakes_live = gan.generate(draws.z, cond=cond, train=True, phases=draws.gen_phases)
-        fakes = [f.detach() for f in fakes_live]
-        if [f.shape[2:4] for f in fakes] != [r.shape[2:4] for r in real_scales]:
-            raise ValueError(
-                f"generator pyramid {[tuple(f.shape[2:4]) for f in fakes]} does not "
-                f"match the frame_sizes pyramid "
-                f"{[tuple(r.shape[2:4]) for r in real_scales]}")
-
-        # D phase: fakes detached, so the backward reaches only D's parameters;
-        # every D step updates against the same fakes
+        cdt = cfg.compute_dtype
+        # the float32 parameters the optimizers update, taken outside the copies
         d_params = [p for d in gan.discrims for p in d.parameters()]
-        loss_d = quarantined = None
-        for j in range(cfg.discrim_steps):
-            loss_j, grad_norm_d, q = self._d_step(d_params, real_scales, fakes,
-                                                  cond_scales, *draws.d_step(j))
-            loss_d = loss_j if loss_d is None else loss_d + loss_j
-            if q is not None:
-                quarantined = q if quarantined is None else quarantined + q
-
-        # G phase, through the updated D; its real predictions carry no gradient
-        with torch.no_grad():
-            real_preds = gan.all_discrim_forward(real_scales, cond_scales=cond_scales)[2]
         g_params = list(gan.gen.parameters())
-        self.opt_g.zero_grad(set_to_none=True)
-        # the gradient w.r.t. the kept fakes, pulled back through the one
-        # generator forward; autograd.grad leaves D's parameters alone
-        leaves = [f.detach().requires_grad_() for f in fakes_live]
-        loss_g = gan.gen_loss(leaves, real_preds, cond_scales, loss=losses)
-        if cfg.mean_gen_loss:
-            loss_g = loss_g / cfg.gen_steps
-        dfakes = torch.autograd.grad(loss_g, leaves)
-        torch.autograd.backward(fakes_live, dfakes)
+        with param_copy([gan.gen], cdt):
+            fakes_live = gan.generate(draws.z, cond=cond, train=True,
+                                      phases=draws.gen_phases)
+            fakes = [f.detach() for f in fakes_live]
+            if [f.shape[2:4] for f in fakes] != [r.shape[2:4] for r in real_scales]:
+                raise ValueError(
+                    f"generator pyramid {[tuple(f.shape[2:4]) for f in fakes]} does not "
+                    f"match the frame_sizes pyramid "
+                    f"{[tuple(r.shape[2:4]) for r in real_scales]}")
+
+            # D phase: fakes detached, so the backward reaches only D's
+            # parameters; every D step updates against the same fakes, each
+            # from its own copy of the updated parameters
+            loss_d = quarantined = None
+            for j in range(cfg.discrim_steps):
+                with param_copy(gan.discrims, cdt):
+                    loss_j, grad_norm_d, q = self._d_step(
+                        d_params, real_scales, fakes, cond_scales, *draws.d_step(j))
+                loss_d = loss_j if loss_d is None else loss_d + loss_j
+                if q is not None:
+                    quarantined = q if quarantined is None else quarantined + q
+
+            # G phase, through the updated D; its real predictions carry no
+            # gradient
+            self.opt_g.zero_grad(set_to_none=True)
+            with param_copy(gan.discrims, cdt):
+                with torch.no_grad():
+                    real_preds = gan.all_discrim_forward(real_scales,
+                                                         cond_scales=cond_scales)[2]
+                # the gradient w.r.t. the kept fakes, pulled back through the
+                # one generator forward; autograd.grad leaves D's parameters alone
+                leaves = [f.detach().requires_grad_() for f in fakes_live]
+                loss_g = gan.gen_loss(leaves, real_preds, cond_scales, loss=losses)
+                if cfg.mean_gen_loss:
+                    loss_g = loss_g / cfg.gen_steps
+                dfakes = torch.autograd.grad(loss_g, leaves)
+            torch.autograd.backward(fakes_live, dfakes)
         grad_norm_g = _norm_and_clip(g_params, cfg.clip_grad)
         self.opt_g.step()
 

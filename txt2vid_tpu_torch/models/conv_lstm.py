@@ -6,7 +6,9 @@ so the layer-0 input conv runs once and later steps see only its bias
 (`wx0_bias`); state starts at zero; the reference's all-zero peepholes are
 omitted. The gate convs keep the fused 4C layout (i, f, g, o along the output
 channels). On a 1x1 plane every non-centre tap of a 3x3 SAME conv sees only
-padding, so the conv is a matmul with the centre tap.
+padding, so the conv is a matmul with the centre tap. With `dtype` (bf16)
+the gate convs cast their input and weights (the LSTM state is then bf16) and
+the `wx0_bias` plane takes the input's dtype, as the JAX module does.
 """
 
 from collections.abc import Sequence
@@ -15,14 +17,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from txt2vid_tpu_torch.models.layers import Conv2d, promote
 from txt2vid_tpu_torch.ops.initializers import fused_gate_xavier_
 
 
-def _gate_conv(conv: nn.Conv2d, x):
+def _gate_conv(conv: Conv2d, x):
     if x.shape[-2:] == (1, 1):
         k = conv.kernel_size[0] // 2
-        y = F.linear(x.flatten(1), conv.weight[:, :, k, k], conv.bias)
-        return y[:, :, None, None]
+        x, weight, bias = promote(conv.compute_dtype, x, conv.weight[:, :, k, k], conv.bias)
+        return F.linear(x.flatten(1), weight, bias)[:, :, None, None]
     return conv(x)
 
 
@@ -30,7 +33,7 @@ class ConvLSTM(nn.Module):
     """x (B, C, h, w) -> (B, step, hidden_channels[-1], h, w): all `step` outputs."""
 
     def __init__(self, in_channels: int, hidden_channels: Sequence[int],
-                 kernel_size: int = 3, step: int = 16):
+                 kernel_size: int = 3, step: int = 16, dtype=None):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError(f"ConvLSTM takes an odd kernel_size, got {kernel_size}")
@@ -38,15 +41,16 @@ class ConvLSTM(nn.Module):
         self.step = step
         pad = kernel_size // 2
         hc0 = self.hidden_channels[0]
-        self.wx0 = nn.Conv2d(in_channels, 4 * hc0, kernel_size, padding=pad, bias=False)
+        self.wx0 = Conv2d(in_channels, 4 * hc0, kernel_size, padding=pad, bias=False,
+                          compute_dtype=dtype)
         self.wx0_bias = nn.Parameter(torch.zeros(4 * hc0))
         cells = {}
         for li, hc in enumerate(self.hidden_channels):
             if li:
-                cells[f"wx{li}"] = nn.Conv2d(self.hidden_channels[li - 1], 4 * hc,
-                                             kernel_size, padding=pad)
-            cells[f"wh{li}"] = nn.Conv2d(hc, 4 * hc, kernel_size, padding=pad,
-                                         bias=False)
+                cells[f"wx{li}"] = Conv2d(self.hidden_channels[li - 1], 4 * hc,
+                                          kernel_size, padding=pad, compute_dtype=dtype)
+            cells[f"wh{li}"] = Conv2d(hc, 4 * hc, kernel_size, padding=pad, bias=False,
+                                      compute_dtype=dtype)
         self.cells = nn.ModuleDict(cells)
 
     def init_weights(self, generator):
@@ -59,8 +63,9 @@ class ConvLSTM(nn.Module):
 
     def forward(self, x):
         b, _, h, w = x.shape
-        gx0 = _gate_conv(self.wx0, x) + self.wx0_bias[:, None, None]
-        bias_plane = self.wx0_bias[:, None, None].expand_as(gx0)
+        bias = self.wx0_bias.to(x.dtype)[:, None, None]
+        gx0 = _gate_conv(self.wx0, x) + bias
+        bias_plane = bias.expand_as(gx0)
         state = [(x.new_zeros(b, hc, h, w), x.new_zeros(b, hc, h, w))
                  for hc in self.hidden_channels]
         outs = []

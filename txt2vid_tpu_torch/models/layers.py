@@ -5,10 +5,18 @@ The non-local `Attention` / `Attention3d` route their softmax core through the
 fused CUDA kernels for CUDA tensors (ops/attention.py) and their plain versions
 for CPU tensors. Module and parameter names follow the JAX package, so
 txt2vid_tpu_torch.convert maps a flax tree onto these state dicts by name.
+
+`dtype` is flax's: parameters stay float32, and each use casts. A convolution
+or dense layer casts its input, weight and bias to `dtype` (bf16 in, bf16
+out; cuDNN and oneDNN accumulate in float32); with dtype None they are
+promoted to their common type, so a bf16 weight copy under a float32 input
+computes in float32 (`promote`, flax's promote_dtype). BatchNorm takes its
+statistics and normalises in float32 and returns `dtype`.
 """
 
 import contextlib
 import contextvars
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +69,50 @@ def remat(fn, *args):
                                           _recompute_context(kernels_off)))
 
 
+def promote(dtype, *tensors):
+    """flax's promote_dtype: each tensor (None stays None) cast to `dtype`, or,
+    when it is None, to the tensors' common type."""
+    if dtype is None:
+        dtype = functools.reduce(torch.promote_types,
+                                 [t.dtype for t in tensors if t is not None])
+    return [None if t is None else t.to(dtype) for t in tensors]
+
+
+class _Casting:
+    """A convolution or linear layer with flax's per-use cast (`promote`) to
+    `compute_dtype`; parameters keep their own dtype."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        x, weight, bias = promote(self.compute_dtype, x, self.weight, self.bias)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            # the CPU backend's bf16 Conv3d returns non-finite values for a
+            # one-frame input; computing from the bf16 values in float32 and
+            # rounding once is what a bf16 product accumulated in float32
+            # gives (cuDNN's on the card)
+            return self._apply_cast(x.float(), weight.float(),
+                                    None if bias is None else bias.float()).to(x.dtype)
+        return self._apply_cast(x, weight, bias)
+
+
+class Conv2d(_Casting, nn.Conv2d):
+    def _apply_cast(self, x, weight, bias):
+        return self._conv_forward(x, weight, bias)
+
+
+class Conv3d(_Casting, nn.Conv3d):
+    def _apply_cast(self, x, weight, bias):
+        return self._conv_forward(x, weight, bias)
+
+
+class Linear(_Casting, nn.Linear):
+    def _apply_cast(self, x, weight, bias):
+        return F.linear(x, weight, bias)
+
+
 def _init_conv(conv, generator, gain: float = 1.0):
     kernel_init_(conv.weight, gain, generator)
     if conv.bias is not None:
@@ -74,17 +126,47 @@ class BatchNorm2d(nn.BatchNorm2d):
     0.9 * old + 0.1 * batch, the variance biased too (torch's own update uses
     momentum 0.1 and the unbiased variance). Eval mode uses the running
     statistics. The recomputation of a remat block (see `remat`) normalises
-    the same way and leaves the statistics alone."""
+    the same way and leaves the statistics alone.
 
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
+    With a `compute_dtype`, or a weight of another dtype than the input (a
+    bf16 parameter copy), it computes as flax's BatchNorm(dtype) does, never
+    through F.batch_norm's mixed-type kernels, which differ by backend: input,
+    scale and bias cast to float32, the statistics and the normalisation
+    taken there, the result cast to `compute_dtype` (or the common type of
+    input and parameters); the running statistics stay float32."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def _update_stats(self, mean, var):
         if not _RECOMPUTING.get():      # remat's recomputation updates nothing
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
                 self.running_mean.mul_(_FLAX_MOMENTUM).add_(mean, alpha=1 - _FLAX_MOMENTUM)
                 self.running_var.mul_(_FLAX_MOMENTUM).add_(var, alpha=1 - _FLAX_MOMENTUM)
+
+    def forward(self, x):
+        if self.compute_dtype is not None or not (
+                x.dtype == self.weight.dtype == self.bias.dtype == torch.float32):
+            return self._forward_cast(x)
+        if not self.training:
+            return super().forward(x)
+        self._update_stats(*reversed(torch.var_mean(x.detach(), dim=(0, 2, 3),
+                                                    correction=0)))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _forward_cast(self, x):
+        out = self.compute_dtype or promote(None, x, self.weight, self.bias)[0].dtype
+        x32, weight, bias = promote(torch.promote_types(x.dtype, torch.float32),
+                                    x, self.weight, self.bias)
+        if self.training:
+            self._update_stats(*reversed(torch.var_mean(x32.detach(), dim=(0, 2, 3),
+                                                        correction=0)))
+            y = F.batch_norm(x32, None, None, weight, bias, True, 0.0, self.eps)
+        else:
+            y = F.batch_norm(x32, self.running_mean, self.running_var, weight, bias, False,
+                             0.0, self.eps)
+        return y.to(out)
 
     def init_weights(self, generator):
         self.reset_parameters()     # weight 1, bias 0, running mean 0 / var 1
@@ -99,15 +181,17 @@ def _tokens(x):
 class Attention(nn.Module):
     """2D non-local block, SA-GAN/BigGAN style: theta/phi C/8 channels, g C/2,
     2x2 max-pool on phi/g, unscaled softmax over H*W x H*W/4, output 1x1 conv,
-    learnable scalar gamma (init 0), residual. Input (B, C, H, W)."""
+    learnable scalar gamma (init 0), residual. Input (B, C, H, W). With dtype
+    bf16 the projections run in bf16, so the attention core takes bf16
+    theta, phi and g (K1-K3's bf16 instantiations on CUDA)."""
 
-    def __init__(self, ch: int, use_kernel: bool = True):
+    def __init__(self, ch: int, use_kernel: bool = True, dtype=None):
         super().__init__()
         self.use_kernel = use_kernel
-        self.theta = nn.Conv2d(ch, ch // 8, 1, bias=False)
-        self.phi = nn.Conv2d(ch, ch // 8, 1, bias=False)
-        self.g = nn.Conv2d(ch, ch // 2, 1, bias=False)
-        self.o = nn.Conv2d(ch // 2, ch, 1, bias=False)
+        self.theta = Conv2d(ch, ch // 8, 1, bias=False, compute_dtype=dtype)
+        self.phi = Conv2d(ch, ch // 8, 1, bias=False, compute_dtype=dtype)
+        self.g = Conv2d(ch, ch // 2, 1, bias=False, compute_dtype=dtype)
+        self.o = Conv2d(ch // 2, ch, 1, bias=False, compute_dtype=dtype)
         self.gamma = nn.Parameter(torch.zeros(()))
 
     def init_weights(self, generator):
@@ -130,13 +214,13 @@ class Attention3d(nn.Module):
     projections, a [1, 2, 2] max-pool on phi/g and attention over T*H*W x
     T*H*W/4, tokens in (t, h, w) order. Input (B, C, T, H, W)."""
 
-    def __init__(self, ch: int, use_kernel: bool = True):
+    def __init__(self, ch: int, use_kernel: bool = True, dtype=None):
         super().__init__()
         self.use_kernel = use_kernel
-        self.theta = nn.Conv3d(ch, ch // 8, 1, bias=False)
-        self.phi = nn.Conv3d(ch, ch // 8, 1, bias=False)
-        self.g = nn.Conv3d(ch, ch // 2, 1, bias=False)
-        self.o = nn.Conv3d(ch // 2, ch, 1, bias=False)
+        self.theta = Conv3d(ch, ch // 8, 1, bias=False, compute_dtype=dtype)
+        self.phi = Conv3d(ch, ch // 8, 1, bias=False, compute_dtype=dtype)
+        self.g = Conv3d(ch, ch // 2, 1, bias=False, compute_dtype=dtype)
+        self.o = Conv3d(ch // 2, ch, 1, bias=False, compute_dtype=dtype)
         self.gamma = nn.Parameter(torch.zeros(()))
 
     def init_weights(self, generator):
@@ -160,16 +244,16 @@ class UpBlock(nn.Module):
     on channel change); optional trailing Attention."""
 
     def __init__(self, in_channels: int, out_channels: int | None = None,
-                 with_non_local: bool = False, use_kernel: bool = True):
+                 with_non_local: bool = False, use_kernel: bool = True, dtype=None):
         super().__init__()
         out_ch = out_channels if out_channels is not None else in_channels
-        self.bn1 = BatchNorm2d(in_channels, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_channels, out_ch, 3, padding=1)
-        self.bn2 = BatchNorm2d(out_ch, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.conv_identity = (nn.Conv2d(in_channels, out_ch, 1)
+        self.bn1 = BatchNorm2d(in_channels, eps=1e-5, compute_dtype=dtype)
+        self.conv1 = Conv2d(in_channels, out_ch, 3, padding=1, compute_dtype=dtype)
+        self.bn2 = BatchNorm2d(out_ch, eps=1e-5, compute_dtype=dtype)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, compute_dtype=dtype)
+        self.conv_identity = (Conv2d(in_channels, out_ch, 1, compute_dtype=dtype)
                               if in_channels != out_ch else None)
-        self.attn = Attention(out_ch, use_kernel) if with_non_local else None
+        self.attn = Attention(out_ch, use_kernel, dtype) if with_non_local else None
 
     def init_weights(self, generator):
         _init_conv(self.conv1, generator, RESIDUAL_GAIN)
@@ -197,13 +281,13 @@ class DownBlock(nn.Module):
     in_channels. Input (B, C, T, H, W)."""
 
     def __init__(self, in_channels: int, out_channels: int | None = None,
-                 wide: bool = True):
+                 wide: bool = True, dtype=None):
         super().__init__()
         out_ch = out_channels if out_channels is not None else in_channels
         mid_ch = out_ch if wide else in_channels
-        self.conv1 = nn.Conv3d(in_channels, mid_ch, 3, padding=1)
-        self.conv2 = nn.Conv3d(mid_ch, out_ch, 3, padding=1)
-        self.conv_identity = nn.Conv3d(in_channels, out_ch, 1)
+        self.conv1 = Conv3d(in_channels, mid_ch, 3, padding=1, compute_dtype=dtype)
+        self.conv2 = Conv3d(mid_ch, out_ch, 3, padding=1, compute_dtype=dtype)
+        self.conv_identity = Conv3d(in_channels, out_ch, 1, compute_dtype=dtype)
 
     def init_weights(self, generator):
         _init_conv(self.conv1, generator, RESIDUAL_GAIN)
@@ -219,10 +303,10 @@ class DownBlock(nn.Module):
 class RenderBlock(nn.Module):
     """BN-ReLU-conv3x3-Tanh to RGB."""
 
-    def __init__(self, in_channels: int, out_channels: int = 3):
+    def __init__(self, in_channels: int, out_channels: int = 3, dtype=None):
         super().__init__()
-        self.bn = BatchNorm2d(in_channels, eps=1e-5)
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.bn = BatchNorm2d(in_channels, eps=1e-5, compute_dtype=dtype)
+        self.conv = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dtype)
 
     def init_weights(self, generator):
         _init_conv(self.conv, generator)

@@ -10,11 +10,11 @@ padding for 1-channel inputs.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from txt2vid_tpu_torch.models.layers import Attention3d, DownBlock, _init_conv
+from txt2vid_tpu_torch.models.layers import Attention3d, Conv3d, DownBlock, Linear, _init_conv
 from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN
+from txt2vid_tpu_torch.ops.pooling import avg_pool_3d
 
 COND_HEADS = ("concat", "proj")
 
@@ -22,40 +22,43 @@ COND_HEADS = ("concat", "proj")
 def avg_pool_122_s2(x):
     """(B, C, T, H, W) average pool, kernel (1, 2, 2), stride 2 in T as well:
     every other frame, 2x2 spatial averaging (resnet3d.py:101-107)."""
-    return F.avg_pool3d(x, (1, 2, 2), stride=2)
+    return avg_pool_3d(x, (1, 2, 2), (2, 2, 2))
 
 
 class Resnet3D(nn.Module):
     """x (B, T, H, W, C) [, cond (B, cond_dim)] -> (uncond (B, 1) | None,
     cond_logit (B, 1) | None, features (B, C_out), at least float32). With
-    `computed_features` the backbone is skipped and uncond is None."""
+    `computed_features` the backbone is skipped and uncond is None. `dtype`
+    (bf16) is the stem's, the DownBlocks' and the attention's; the sum pool
+    and the heads compute in float32, as flax's Dense layers without a dtype
+    do."""
 
     def __init__(self, num_channels: int = 1, mid_ch: int = 64, cond_dim: int = 0,
                  num_down_blocks: int = 4, wide: bool = False, with_attn: bool = True,
-                 cond_head: str = "concat", use_kernel: bool = True):
+                 cond_head: str = "concat", use_kernel: bool = True, dtype=None):
         super().__init__()
         if cond_head not in COND_HEADS:
             raise ValueError(f"cond_head {cond_head!r} is not one of {COND_HEADS}")
         self.cond_dim = cond_dim
         self.cond_head = cond_head
         self.num_down_blocks = num_down_blocks
-        self.stem_conv1 = nn.Conv3d(num_channels, mid_ch, 3, padding=1)
-        self.stem_conv2 = nn.Conv3d(mid_ch, mid_ch, 3, padding=1)
-        self.stem_skip = nn.Conv3d(num_channels, mid_ch, 1)
+        self.stem_conv1 = Conv3d(num_channels, mid_ch, 3, padding=1, compute_dtype=dtype)
+        self.stem_conv2 = Conv3d(mid_ch, mid_ch, 3, padding=1, compute_dtype=dtype)
+        self.stem_skip = Conv3d(num_channels, mid_ch, 1, compute_dtype=dtype)
         ch, out_ch = mid_ch, 128
         for i in range(num_down_blocks):
-            self.add_module(f"down{i}", DownBlock(ch, out_ch, wide=wide))
+            self.add_module(f"down{i}", DownBlock(ch, out_ch, wide=wide, dtype=dtype))
             ch, out_ch = out_ch, out_ch * 2
-        self.attn = (Attention3d(128, use_kernel)
+        self.attn = (Attention3d(128, use_kernel, dtype)
                      if with_attn and num_down_blocks > 0 else None)
-        self.fc_uncond = nn.Linear(ch, 1)
+        self.fc_uncond = Linear(ch, 1)
         self.fc = self.cond_proj = None
         if cond_dim:
             if cond_head == "proj":
-                self.cond_proj = nn.Linear(cond_dim, ch, bias=False)
-                self.fc = nn.Linear(ch, 1)
+                self.cond_proj = Linear(cond_dim, ch, bias=False)
+                self.fc = Linear(ch, 1)
             else:
-                self.fc = nn.Linear(ch + cond_dim, 1)
+                self.fc = Linear(ch + cond_dim, 1)
 
     def init_weights(self, generator):
         _init_conv(self.stem_conv1, generator, RESIDUAL_GAIN)

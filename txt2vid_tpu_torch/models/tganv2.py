@@ -17,6 +17,12 @@ wraps in the JAX package (tganv2.py:120-123,183-185) in the backward instead
 of keeping them: the generator's base and each additional UpBlock, the
 discriminator's every Resnet3D call (layers.remat). The subsamples stay
 outside the wrapped blocks. Numerics do not change.
+
+`dtype` (None or torch.bfloat16; "bfloat16" as a spec gives it, config.py)
+is flax's compute dtype (tganv2.py:33-42,68-137,172-208): parameters stay
+float32 and every block casts at each use. The generator casts z [‖ cond]
+before fc and returns bf16 videos; the discriminator casts each scale before
+its Resnet3D, whose features and logits are float32.
 """
 
 from collections.abc import Sequence
@@ -25,7 +31,7 @@ import torch
 from torch import nn
 
 from txt2vid_tpu_torch.models.conv_lstm import ConvLSTM
-from txt2vid_tpu_torch.models.layers import RenderBlock, UpBlock, remat
+from txt2vid_tpu_torch.models.layers import Linear, RenderBlock, UpBlock, remat
 from txt2vid_tpu_torch.models.resnet3d import Resnet3D
 from txt2vid_tpu_torch.ops.initializers import kernel_init_
 from txt2vid_tpu_torch.ops.subsample import subsample_video
@@ -34,11 +40,11 @@ from txt2vid_tpu_torch.ops.subsample import subsample_video
 class BaseFrameGen(nn.Module):
     """UpBlock stack in_channels -> 512 -> 256 -> 128."""
 
-    def __init__(self, in_channels: int = 1024, out_channels: int = 128):
+    def __init__(self, in_channels: int = 1024, out_channels: int = 128, dtype=None):
         super().__init__()
-        self.up0 = UpBlock(in_channels, 512)
-        self.up1 = UpBlock(512, 256)
-        self.up2 = UpBlock(256, out_channels)
+        self.up0 = UpBlock(in_channels, 512, dtype=dtype)
+        self.up1 = UpBlock(512, 256, dtype=dtype)
+        self.up2 = UpBlock(256, out_channels, dtype=dtype)
 
     def forward(self, x):
         return self.up2(self.up1(self.up0(x)))
@@ -53,28 +59,30 @@ class MultiScaleGen(nn.Module):
                  num_channels: int = 3, additional_blocks: Sequence[int] = (64, 32, 32),
                  fm_channels: int = 1024, num_frames: int = 16, cond_dim: int = 0,
                  fm_stride: int | None = None, with_non_local: bool = False,
-                 use_kernel: bool = True, remat: bool = False):
+                 use_kernel: bool = True, remat: bool = False, dtype=None):
         super().__init__()
         self.remat = remat
+        self.dtype = dtype
         self.latent_size = latent_size
         self.num_frames = num_frames
         self.fm_channels = fm_channels
         stride = fm_stride or 64
         self.fm_w = max(1, width // stride)
         self.fm_h = max(1, height // stride)
-        self.fc = nn.Linear(latent_size + cond_dim,
-                            self.fm_h * self.fm_w * fm_channels)
+        self.fc = Linear(latent_size + cond_dim, self.fm_h * self.fm_w * fm_channels,
+                         compute_dtype=dtype)
         self.clstm = ConvLSTM(fm_channels, (fm_channels,), kernel_size=3,
-                              step=num_frames)
-        self.base = BaseFrameGen(fm_channels)
-        self.render_base = RenderBlock(128, num_channels)
+                              step=num_frames, dtype=dtype)
+        self.base = BaseFrameGen(fm_channels, dtype=dtype)
+        self.render_base = RenderBlock(128, num_channels, dtype)
         self.num_blocks = 1 + len(additional_blocks)
         prev = 128
         for i, ch in enumerate(additional_blocks):
             self.add_module(f"up{i}", UpBlock(
                 prev, ch, use_kernel=use_kernel,
-                with_non_local=with_non_local and i == len(additional_blocks) - 2))
-            self.add_module(f"render{i}", RenderBlock(ch, num_channels))
+                with_non_local=with_non_local and i == len(additional_blocks) - 2,
+                dtype=dtype))
+            self.add_module(f"render{i}", RenderBlock(ch, num_channels, dtype))
             prev = ch
 
     def init_weights(self, generator):
@@ -95,6 +103,8 @@ class MultiScaleGen(nn.Module):
         if train and len(phases) != self.num_blocks - 1:
             raise ValueError(f"{self.num_blocks - 1} phases needed, got {len(phases)}")
         x = z if cond is None else torch.cat([z, cond], dim=1)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         b = x.shape[0]
         # the fc's outputs are (fm_h, fm_w, C) in the JAX layout; NCHW after
         x = self.fc(x).reshape(b, self.fm_h, self.fm_w, self.fm_channels)
@@ -132,15 +142,16 @@ class MultiScaleDiscrim(nn.Module):
     def __init__(self, discrim_down_blocks: Sequence[int] = (4, 4, 4, 4),
                  num_channels: int = 3, cond_dim: int = 0, single_discrim: bool = True,
                  wide: bool = False, with_attn: bool = True, cond_head: str = "concat",
-                 use_kernel: bool = True, remat: bool = False):
+                 use_kernel: bool = True, remat: bool = False, dtype=None):
         super().__init__()
         self.single_discrim = single_discrim
         self.remat = remat
+        self.dtype = dtype
 
         def make(db):
             return Resnet3D(num_channels=num_channels, cond_dim=cond_dim,
                             num_down_blocks=db, wide=wide, with_attn=with_attn,
-                            cond_head=cond_head, use_kernel=use_kernel)
+                            cond_head=cond_head, use_kernel=use_kernel, dtype=dtype)
 
         if single_discrim:
             self.discrim = make(discrim_down_blocks[-1])
@@ -156,6 +167,8 @@ class MultiScaleDiscrim(nn.Module):
             scale_indices = range(len(x))
         out = []
         for pos, (si, scale) in enumerate(zip(scale_indices, x)):
+            if self.dtype is not None:
+                scale = scale.to(self.dtype)
             args = (scale, cond[pos] if cond is not None else None,
                     computed_features[pos] if computed_features is not None else None)
             sub = self.sub(si)

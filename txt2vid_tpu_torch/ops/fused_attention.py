@@ -24,7 +24,8 @@ zero-padded to the MMA depth of 8, or 16 in bfloat16; see the sources' notes).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it computes its plain version (`*_reference`)
-at any width. Each wrapper's `.launches` counts its kernel's launches.
+at any width. Each wrapper's `.launches` counts its kernel's launches, and
+`.dtype_launches` the launches of each dtype's instantiation.
 """
 
 import ctypes
@@ -216,6 +217,7 @@ def fused_attention(theta, phi, g, return_lse: bool = False):
         b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
     _raise_on(err, "attention_fwd")
     fused_attention.launches += 1
+    fused_attention.dtype_launches[g.dtype] += 1
     return (o, lse) if return_lse else o
 
 
@@ -244,6 +246,7 @@ def attention_bwd_dq(theta, phi, g, do, lse, delta):
         b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
     _raise_on(err, "attention_bwd_dq")
     attention_bwd_dq.launches += 1
+    attention_bwd_dq.dtype_launches[g.dtype] += 1
     return dtheta
 
 
@@ -297,6 +300,7 @@ def attention_bwd_dkv(theta, phi, g, do, lse, delta):
         b, n, m, d, dv, _DTYPE_CODE[g.dtype], theta.device.index, _stream(theta))
     _raise_on(err, "attention_bwd_dkv")
     attention_bwd_dkv.launches += 1
+    attention_bwd_dkv.dtype_launches[g.dtype] += 1
     return dphi, dg
 
 
@@ -331,6 +335,6 @@ def occupancy(kernel, shape, dtype=torch.float32, device_index=0):
             "resident_warps_per_sm": min(out[0] * warps, grid * warps / sms)}
 
 
-fused_attention.launches = 0
-attention_bwd_dq.launches = 0
-attention_bwd_dkv.launches = 0
+for _wrapper in (fused_attention, attention_bwd_dq, attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.dtype_launches = dict.fromkeys(_DTYPE_CODE, 0)

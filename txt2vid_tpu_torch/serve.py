@@ -21,7 +21,10 @@ generator average, as txt2vid_tpu/serve.py:101-145 does:
 writes one PNG grid per sample (--format png). Without --weights the
 flagship conditional model is built from --seed with random weights and a
 vocabulary of the synthetic moving-digit captions. `--bench N` times N videos
-and prints one JSON line. bf16 serving (--bf16) and the video formats (gif,
+and prints one JSON line. `--bf16` builds the generator with dtype bf16
+(float32 parameters cast at each use, bf16 activations and attention, the
+caption encoder float32), as txt2vid_tpu/serve.py:121-122 does; the uint8
+quantization runs on a float32 copy of the video. The video formats (gif,
 avi, mp4, webm) raise NotImplementedError naming themselves.
 """
 
@@ -129,17 +132,19 @@ class GeneratorService:
 
     @classmethod
     def from_seed(cls, vocab=None, seed: int = 0, batch_size: int = 8,
-                  max_caption_len: int = 16, device=None):
+                  max_caption_len: int = 16, device=None, bf16: bool = False):
         """The flagship conditional model (tganv2_cond.MultiScaleGen: 64 px, 16
         frames, latent 256 + cond 256, fm_channels 1024, additional_blocks
         (64, 32, 32); Seq2Seq embed 256, hidden 256, 4 layers) with random weights
-        from `seed`. Without a vocab the generator is unconditional."""
+        from `seed`. Without a vocab the generator is unconditional; `bf16`
+        computes the generator in bfloat16."""
         device = resolve_device(device)
         txt = None
         if vocab is not None:
             txt = init_from_seed(Seq2Seq(vocab_size=len(vocab)), seed + 1)
         cond_dim = txt.encoding_size if txt is not None else 0
-        gen = init_from_seed(tganv2_cond.MultiScaleGen(cond_dim=cond_dim), seed)
+        gen = init_from_seed(tganv2_cond.MultiScaleGen(
+            cond_dim=cond_dim, dtype=torch.bfloat16 if bf16 else None), seed)
         return cls(CondGan(gen, txt), vocab=vocab, batch_size=batch_size,
                    max_caption_len=max_caption_len, device=device)
 
@@ -155,9 +160,8 @@ class GeneratorService:
         parameters are checked against D's shapes as the JAX package's
         template does; with `ema` the generator takes the parameters of the
         `<weights>.ema` sibling. frame_sizes, num_frames and num_channels
-        describe the training batch and must agree with the generator."""
-        if bf16:
-            raise NotImplementedError("--bf16 serving comes in a later slice of the port")
+        describe the training batch and must agree with the generator. `bf16`
+        computes the generator in bfloat16 from the float32 checkpoint."""
         from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
         device = resolve_device(device)
         vocab = load_pickle(vocab_path) if vocab_path else None
@@ -166,7 +170,7 @@ class GeneratorService:
             txt = create_object(sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
                                 vocab_size=len(vocab))
             cond_dim = txt.encoding_size
-        gen = create_object(G, cond_dim=cond_dim)
+        gen = create_object(G, cond_dim=cond_dim, **({"dtype": torch.bfloat16} if bf16 else {}))
         discrims = [create_object(d, cond_dim=cond_dim) for d in D]
         size = gen.fm_w * 8 * 2 ** (gen.num_blocks - 1)
         rendered = (gen.num_frames, size, gen.render_base.conv.out_channels)
@@ -204,8 +208,6 @@ def main(args):
     # semantics; cuDNN would take TF32 by default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.bf16:
-        raise NotImplementedError("--bf16 serving comes in a later slice of the port")
     if args.format in VIDEO_FORMATS:
         raise NotImplementedError(f"--format {args.format} comes in a later slice of the "
                                   "port (utils/video.py); --format png writes grids")
@@ -216,13 +218,14 @@ def main(args):
             args.weights, args.G, args.D, sent=args.sent, vocab_path=args.vocab,
             frame_sizes=tuple(args.frame_sizes), num_frames=args.num_frames,
             num_channels=args.num_channels, batch_size=args.batch_size,
-            max_caption_len=args.max_caption_len, ema=args.ema, device=args.device)
+            max_caption_len=args.max_caption_len, bf16=args.bf16, ema=args.ema,
+            device=args.device)
     else:
         vocab = (load_pickle(args.vocab) if args.vocab
                  else build_vocab(moving_digit_captions(1000, args.seed)))
         svc = GeneratorService.from_seed(
             vocab, seed=args.seed, batch_size=args.batch_size,
-            max_caption_len=args.max_caption_len, device=args.device)
+            max_caption_len=args.max_caption_len, device=args.device, bf16=args.bf16)
 
     sentences = args.sentences
     if sentences is None and svc.vocab is not None:
@@ -241,6 +244,7 @@ def main(args):
             "unit": "videos/sec", "ms_per_video": 1e3 * dt / n,
             "batch_size": svc.batch_size, "n": n,
             "shape": list(out.shape[1:]), "dtype": "uint8",
+            "compute_dtype": "bf16" if args.bf16 else "f32",
             "cond": sentences is not None,
             "device": (torch.cuda.get_device_name(svc.device)
                        if svc.device.type == "cuda" else str(svc.device)),
@@ -276,7 +280,7 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_caption_len", type=int, default=16)
     p.add_argument("--bf16", action="store_true", default=False,
-                   help="not in the port yet (raises)")
+                   help="compute the generator in bfloat16 (float32 parameters)")
     p.add_argument("--ema", action="store_true", default=False,
                    help="serve the sibling <weights>.ema generator average instead of "
                         "the live parameters (gan/ema.py)")

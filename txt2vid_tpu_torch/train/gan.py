@@ -20,6 +20,14 @@ It runs on CUDA unless --device names another device (the tests pass
 JAX package wrote, and the port's checkpoints open in the JAX package. A
 NanAbort exits with code 42. Flags of levers the port does not have yet raise
 NotImplementedError naming the flag.
+
+bfloat16, as the JAX CLI has it (train/gan.py:88-124,189-190): --bf16 builds
+G and D with dtype bf16 (float32 parameters, per-use casts; the caption
+encoder stays float32) and stores Adam's first moment in bf16; --bf16_nu
+stores the second moment in bf16 as well (ops/optim.py); --bf16_params runs
+every forward and backward of the step from one bf16 copy of the parameters
+(TrainConfig.compute_dtype). The checkpoints hold the moments in their
+storage dtype, as flax writes them, and restore across storage dtypes.
 """
 
 import argparse
@@ -42,10 +50,10 @@ from txt2vid_tpu_torch.utils import count_params, status
 from txt2vid_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_state,
                                                 restore_txt_vars)
 
-# (flag, test of the parsed value): levers of the JAX CLI the port does not have yet
+# (flag, test of the parsed value): levers of the JAX CLI the port does not have
+# yet (--bf16, --bf16_nu and --bf16_params are ported)
 UNPORTED = (
-    ("--bf16", lambda a: a.bf16), ("--bf16_nu", lambda a: a.bf16_nu),
-    ("--bf16_params", lambda a: a.bf16_params), ("--sgd", lambda a: a.sgd),
+    ("--sgd", lambda a: a.sgd),
     ("--end2end", lambda a: a.end2end), ("--end2end_d_only", lambda a: a.end2end_d_only),
     ("--gen_steps", lambda a: a.gen_steps > 1), ("--sp", lambda a: a.sp > 1),
     ("--fsdp", lambda a: a.fsdp > 1), ("--multihost", lambda a: a.multihost),
@@ -122,18 +130,25 @@ def main(args):
     else:
         status("Not using sentence encoder")
 
-    gen = create_object(args.G, cond_dim=cond_dim, init_method=args.init_method)
-    discrims = [create_object(d, cond_dim=cond_dim, init_method=args.init_method)
-                for d in args.D]
+    model_kwargs = dict(init_method=args.init_method)
+    if args.bf16:
+        status("Using bfloat16 compute")
+        model_kwargs["dtype"] = torch.bfloat16
+    gen = create_object(args.G, cond_dim=cond_dim, **model_kwargs)
+    discrims = [create_object(d, cond_dim=cond_dim, **model_kwargs) for d in args.D]
     for k, m in enumerate([gen, *discrims, txt_encoder]):
         if m is not None:
             init_from_seed(m, _seed(seed, k)).to(device)
     gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas)
 
     status("Using Adam")
+    # --bf16 stores the first moment in bf16, --bf16_nu the second; the
+    # update's arithmetic stays float32
+    storage = dict(mu_dtype=torch.bfloat16 if args.bf16 else None,
+                   nu_dtype=torch.bfloat16 if args.bf16_nu else None)
     opt_d = adam([p for d in discrims for p in d.parameters()], args.D_lr,
-                 args.D_beta1, args.D_beta2)
-    opt_g = adam(gen.parameters(), args.G_lr, args.G_beta1, args.G_beta2)
+                 args.D_beta1, args.D_beta2, **storage)
+    opt_g = adam(gen.parameters(), args.G_lr, args.G_beta1, args.G_beta2, **storage)
     if args.clip_grad:
         status(f"Clipping gradients to global norm {args.clip_grad}")
 
@@ -157,6 +172,7 @@ def main(args):
         latent_size=gen.latent_size,
         shared_gen_fwd=args.shared_gen_fwd,
         clip_grad=args.clip_grad or 0.0,
+        compute_dtype=torch.bfloat16 if args.bf16_params else None,
     )
     if args.G_loss is None:
         args.G_loss = args.D_loss
@@ -263,11 +279,15 @@ def build_parser():
                              'clip into separate programs only to dodge a TPU '
                              'miscompile, and its tests pin the two equal')
     parser.add_argument('--bf16_nu', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='store the second Adam moment in bfloat16 as well '
+                             '(the update math stays float32)')
     parser.add_argument('--bf16', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='bfloat16 compute dtype for G and D (parameters stay '
+                             'float32) and a bfloat16 first Adam moment')
     parser.add_argument('--bf16_params', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='one bfloat16 copy of the G and D parameters per step, '
+                             'which every forward and backward reads (stored '
+                             'parameters and the update stay float32)')
     parser.add_argument('--shared_gen_fwd', action='store_true', default=False,
                         help='accepted: the port always runs one generator forward '
                              'per step, which outside end2end is the same computation')

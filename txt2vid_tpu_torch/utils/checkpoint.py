@@ -6,7 +6,8 @@ A checkpoint is one msgpack file of the whole train state as flax writes it
 step, generator params and batch stats, discriminator and caption-encoder
 params, both Adam states — named `iter_%d_lossG_%.4f_lossD_%.4f` as the
 reference names its files. A file either package writes, the other restores.
-Trees hold numpy arrays or torch tensors; tensors are written through the host.
+Trees hold numpy arrays or torch tensors; tensors are written through the host,
+a bfloat16 tensor as a msgpack.BFloat16Array (flax's bfloat16 leaf).
 """
 
 import os
@@ -35,13 +36,22 @@ def tree_map(fn, tree):
     return None if tree is None else fn(tree)
 
 
+def _host_leaf(a):
+    if not torch.is_tensor(a):
+        return a
+    a = a.detach().contiguous().to("cpu", copy=True)
+    if a.dtype == torch.bfloat16:
+        return msgpack.BFloat16Array.from_bits(a.view(torch.int16).numpy().view(np.uint16))
+    return a.numpy()
+
+
 def to_host(tree):
     """Every torch tensor leaf as a C-ordered numpy array of its own (a copy,
-    also for a CPU tensor, so later in-place updates do not reach it). The
-    JAX layout's transposes are made on the tensor's device, so the copy to
-    the host and the encoding move contiguous memory."""
-    return tree_map(lambda a: a.detach().contiguous().to("cpu", copy=True).numpy()
-                    if torch.is_tensor(a) else a, tree)
+    also for a CPU tensor, so later in-place updates do not reach it; a
+    bfloat16 tensor as a msgpack.BFloat16Array). The JAX layout's transposes
+    are made on the tensor's device, so the copy to the host and the encoding
+    move contiguous memory."""
+    return tree_map(_host_leaf, tree)
 
 
 def save_state(state, path) -> str:
@@ -123,6 +133,11 @@ class AsyncCheckpointer:
             raise err
 
 
+def _is_bf16(leaf):
+    return isinstance(leaf, msgpack.BFloat16Array) or (
+        torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16)
+
+
 def _dtype_of(leaf):
     if torch.is_tensor(leaf):
         return np.dtype(_NP_DTYPES[leaf.dtype])
@@ -141,10 +156,16 @@ def _restore_like(template, state, path):
         return state
     if isinstance(state, dict):
         raise ValueError(f"checkpoint holds a tree where the state has a leaf at {path}")
-    arr = np.asarray(state)
     shape = tuple(template.shape)
-    if arr.shape != shape:
-        raise ValueError(f"checkpoint leaf {path} has shape {arr.shape}, the state {shape}")
+    if tuple(np.shape(state)) != shape:
+        raise ValueError(f"checkpoint leaf {path} has shape {np.shape(state)}, the "
+                         f"state {shape}")
+    if _is_bf16(template):
+        return (state if isinstance(state, msgpack.BFloat16Array)
+                else msgpack.BFloat16Array.from_float32(state))
+    if isinstance(state, msgpack.BFloat16Array):
+        state = state.to_float32()
+    arr = np.asarray(state)
     dtype = _dtype_of(template)
     return arr.astype(dtype) if dtype is not None and arr.dtype != dtype else arr
 
@@ -153,7 +174,9 @@ def restore_state(template, path):
     """The tree in `path`, in the structure of `template` (keys the template
     lacks are dropped, as flax's from_bytes does), each leaf cast to the
     template leaf's dtype (restore_state's rule: moment storage dtypes are run
-    configuration, not state identity)."""
+    configuration, not state identity), so an f32 checkpoint resumes under a
+    bf16-moment config and a bf16 one under f32; bfloat16 is rounded to
+    nearest even, as jnp's astype rounds."""
     with open(path, "rb") as f:
         return _restore_like(template, msgpack.unpackb(f.read()), "")
 

@@ -17,8 +17,11 @@ reads it with `msgpack_restore` (txt2vid_tpu/utils/checkpoint.py:25-34,
   {"__msgpack_chunked_array__": True, "shape": {...}, "chunks": {...}} and
   read back whole.
 
-A bfloat16 array (the JAX package's --bf16 moments) is read as float32, which
-holds every bfloat16 value exactly; numpy has no bfloat16 to write.
+A bfloat16 leaf (the --bf16 / --bf16_nu Adam moments) is written as flax
+writes it: ext 1 with the dtype name "bfloat16" and the high 16 bits of each
+float32. numpy has no bfloat16, so on the host such a leaf is a
+`BFloat16Array`, the uint16 bit patterns; reading gives float32, which holds
+every bfloat16 value exactly (a restore rounds it to the state's dtype).
 """
 
 import struct
@@ -28,6 +31,34 @@ import numpy as np
 MAX_CHUNK_SIZE = 2**30
 EXT_NDARRAY, EXT_NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
+
+
+class BFloat16Array(np.ndarray):
+    """A bfloat16 array on numpy: its uint16 bit patterns, the high halves of
+    float32 values."""
+
+    @classmethod
+    def from_bits(cls, bits) -> "BFloat16Array":
+        return np.array(bits, dtype=np.uint16, order="C").view(cls)
+
+    @classmethod
+    def from_float32(cls, x) -> "BFloat16Array":
+        """float32 rounded to the nearest bfloat16, ties to even (NaN stays
+        NaN), as jnp's astype and torch's .to(torch.bfloat16) round."""
+        bits = np.array(x, dtype=np.float32, order="C").view(np.uint32)
+        rounded = (bits + (0x7FFF + ((bits >> 16) & 1))) >> 16
+        nan = np.isnan(bits.view(np.float32))
+        return cls.from_bits(np.where(nan, (bits >> 16) | 0x40, rounded).astype(np.uint16))
+
+    def to_float32(self) -> np.ndarray:
+        return (self.view(np.ndarray).astype(np.uint32) << 16).view(np.float32)
+
+
+def as_float32(a) -> np.ndarray:
+    """A leaf as a float32 numpy array (a BFloat16Array by its values)."""
+    if isinstance(a, BFloat16Array):
+        return a.to_float32()
+    return np.asarray(a, dtype=np.float32)
 
 
 # --------------------------------------------------------------------- writing
@@ -89,8 +120,10 @@ def _ndarray_bytes(arr: np.ndarray) -> bytes:
     """msgpack of (shape, dtype name, C-order bytes), flax's _ndarray_to_bytes."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes have no msgpack form")
+    name = "bfloat16" if isinstance(arr, BFloat16Array) else arr.dtype.name
     out = []
-    _pack(out, [list(int(s) for s in arr.shape), arr.dtype.name, arr.tobytes("C")])
+    _pack(out, [list(int(s) for s in arr.shape), name,
+                arr.view(np.ndarray).tobytes("C")])
     return b"".join(out)
 
 
@@ -121,7 +154,7 @@ def _pack(out, obj):
         for k, v in obj.items():
             _pack(out, k)
             _pack(out, v)
-    elif isinstance(obj, np.ndarray):
+    elif isinstance(obj, np.ndarray):     # a BFloat16Array too
         _pack_ext(out, EXT_NDARRAY, _ndarray_bytes(obj))
     elif isinstance(obj, np.generic):
         _pack_ext(out, EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
@@ -162,21 +195,23 @@ def _dtype(name: str):
     return np.dtype(name)
 
 
-def _ndarray_from(data) -> np.ndarray:
+def _ndarray_from(data, bf16_bits: bool = False) -> np.ndarray:
     shape, name, buf = _Reader(data, raw=True).read_all()
     name = name.decode() if isinstance(name, bytes) else name
     dtype = _dtype(name)
     if dtype is None:        # bfloat16: the high half of a float32
-        bits = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32) << 16
-        return bits.view(np.float32).reshape(shape)
+        bits = np.frombuffer(buf, dtype=np.uint16).reshape(shape)
+        return BFloat16Array.from_bits(bits) if bf16_bits else BFloat16Array.to_float32(
+            bits.view(BFloat16Array))
     return np.frombuffer(buf, dtype=dtype).reshape(shape)
 
 
 class _Reader:
-    def __init__(self, data, raw: bool = False):
+    def __init__(self, data, raw: bool = False, bf16_bits: bool = False):
         self.data = memoryview(data)
         self.pos = 0
         self.raw = raw
+        self.bf16_bits = bf16_bits
 
     def read_all(self):
         obj = self.read()
@@ -203,9 +238,9 @@ class _Reader:
         code = self._unpack("b")
         data = self._take(n)
         if code == EXT_NDARRAY:
-            return _ndarray_from(data)
+            return _ndarray_from(data, self.bf16_bits)
         if code == EXT_NPSCALAR:
-            return _ndarray_from(data)[()]
+            return _ndarray_from(data, self.bf16_bits)[()]
         raise ValueError(f"unknown msgpack ext type {code}")
 
     def read(self):
@@ -267,7 +302,8 @@ def _unchunk(tree):
     return tree
 
 
-def unpackb(data: bytes):
+def unpackb(data: bytes, bf16_bits: bool = False):
     """What flax's `msgpack_restore` returns for `data`: nested dicts with
-    numpy array leaves (read-only views of `data`), chunked arrays joined."""
-    return _unchunk(_Reader(data).read_all())
+    numpy array leaves (read-only views of `data`), chunked arrays joined; a
+    bfloat16 leaf as float32, or with bf16_bits as a BFloat16Array."""
+    return _unchunk(_Reader(data, bf16_bits=bf16_bits).read_all())
