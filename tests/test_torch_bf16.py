@@ -25,7 +25,13 @@ numpy seeds (test_torch_models' `random_variables`: nothing at its init value).
   than 2x JAX's (the largest distance over leaves, each over its leaf scale),
   and the losses within 2e-2 relative of JAX's (the JAX package's own rule in
   test_compute_dtype_copy_matches_per_use_casts). Stored parameters stay
-  float32 and the caption encoder computes in float32.
+  float32 and the caption encoder computes in float32. With -s the test
+  prints both distances (port 0.889 / 0.714 / 0.328 against JAX's 2.916 /
+  2.711 / 0.328 at the three flag sets).
+- chip_smoke's in-step rule for the bf16 kernels (leaf by leaf, 2x the plain
+  step's distance floored at two bf16 ulps) through the kernels' plain
+  versions: it passes them and fails a backward with dtheta zeroed or dg 10%
+  off.
 - The checkpoint of a bf16-moment state is byte for byte what flax's
   serializer writes, and restores under a float32 config and back.
 - `serve --bf16` against txt2vid_tpu.serve with bf16=True from one
@@ -36,6 +42,7 @@ numpy seeds (test_torch_models' `random_variables`: nothing at its init value).
 
 import json
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,6 +81,7 @@ from txt2vid_tpu_torch.gan.cond_gan import CondGan
 from txt2vid_tpu_torch.gan.train_step import Draws, TrainConfig, adam, build_train_step
 from txt2vid_tpu_torch.models import conv_lstm, layers, resnet3d, tganv2
 from txt2vid_tpu_torch.models.txt import Seq2Seq
+from txt2vid_tpu_torch.ops import attention as attention_mod
 from txt2vid_tpu_torch.ops.optim import AdamStorage
 from txt2vid_tpu_torch.ops.pooling import avg_pool_3d_shape_aware
 from txt2vid_tpu_torch.serve import GeneratorService
@@ -550,7 +558,43 @@ def test_step_no_further_from_float32_than_twice_jax(steps, name):
     s = steps[name]
     port = _distance(_mu(s["step"]), s["ref"])
     jax_side = _distance(_jax_mu(s["new"]), s["ref"])
+    print(f"{name}: distance from the port's float32 step: port {port:.4g}, JAX {jax_side:.4g}")
     assert 0 < port <= 2 * jax_side, (port, jax_side)
+
+
+def _broken(index, factor):
+    """A fused backward whose output `index` (dtheta, dphi, dg) is scaled."""
+    plain = attention_mod.fused_attention_bwd
+
+    def bwd(*args):
+        out = list(plain(*args))
+        out[index] = out[index] * factor
+        return tuple(out)
+    return bwd
+
+
+@pytest.mark.parametrize("broken", [None, (0, 0.0), (2, 0.9)],
+                         ids=["kernels", "dtheta_zero", "dg_off_10pc"])
+def test_chip_smoke_step_rule(monkeypatch, capsys, broken):
+    """chip_smoke's in-step check of the bf16 kernels (compare_bf16_step)
+    through the kernels' plain versions, which run for CPU tensors: it passes
+    them, and fails a backward that zeroes dtheta or puts dg 10% off."""
+    if broken is not None:
+        monkeypatch.setattr(attention_mod, "fused_attention_bwd", _broken(*broken))
+    torch.manual_seed(0)
+    step = _port_step((True, True, False))
+    video, caps, lens = _batch()
+    batch = {"video": torch.from_numpy(video), "captions": torch.from_numpy(caps).long(),
+             "lengths": torch.from_numpy(lens)}
+    step(batch)
+    if broken is None:
+        chip_smoke.compare_bf16_step(step, batch, "bf16")
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.compare_bf16_step(step, batch, "bf16")
+    with capsys.disabled():
+        print(next(line for line in capsys.readouterr().out.splitlines()
+                   if "leaf by leaf" in line))
 
 
 @pytest.mark.parametrize("name", list(FLAGS))

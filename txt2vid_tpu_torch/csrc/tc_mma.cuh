@@ -185,12 +185,10 @@ struct Mma<__nv_bfloat16> {
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(b.v[0]), "r"(b.v[1]));
   }
-  // c += a b, summed from zero and added to c rounding to nearest
+  // One pass, and S's d <= 16 = K makes one MMA step from zero: there is no
+  // truncating add to repair, so this is mma.
   static __device__ __forceinline__ void mma_rn(float c[4], const A& a, const B& b) {
-    float t[4] = {};
-    mma(t, a, b);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] += t[e];
+    mma(c, a, b);
   }
   template <typename F>
   static __device__ __forceinline__ A load_a(F get, int k0, int r, int c) {

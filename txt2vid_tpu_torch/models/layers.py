@@ -128,12 +128,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics. The recomputation of a remat block (see `remat`) normalises
     the same way and leaves the statistics alone.
 
-    With a `compute_dtype`, or a weight of another dtype than the input (a
-    bf16 parameter copy), it computes as flax's BatchNorm(dtype) does, never
-    through F.batch_norm's mixed-type kernels, which differ by backend: input,
-    scale and bias cast to float32, the statistics and the normalisation
-    taken there, the result cast to `compute_dtype` (or the common type of
-    input and parameters); the running statistics stay float32."""
+    Every dtype takes one path, flax's BatchNorm(dtype), never F.batch_norm's
+    mixed-type kernels, which differ by backend: input, scale and bias cast to
+    float32, the statistics and the normalisation taken there, the result
+    cast to `compute_dtype` (or the common type of input and parameters, so a
+    float32 module in float32 is plain batch norm); the running statistics
+    stay float32."""
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -146,17 +146,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(_FLAX_MOMENTUM).add_(var, alpha=1 - _FLAX_MOMENTUM)
 
     def forward(self, x):
-        if self.compute_dtype is not None or not (
-                x.dtype == self.weight.dtype == self.bias.dtype == torch.float32):
-            return self._forward_cast(x)
-        if not self.training:
-            return super().forward(x)
-        self._update_stats(*reversed(torch.var_mean(x.detach(), dim=(0, 2, 3),
-                                                    correction=0)))
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-
-    def _forward_cast(self, x):
-        out = self.compute_dtype or promote(None, x, self.weight, self.bias)[0].dtype
+        out = self.compute_dtype or torch.promote_types(
+            torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
         x32, weight, bias = promote(torch.promote_types(x.dtype, torch.float32),
                                     x, self.weight, self.bias)
         if self.training:

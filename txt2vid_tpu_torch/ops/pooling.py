@@ -29,18 +29,30 @@ def avg_pool_3d(x: torch.Tensor, kernel, stride, pad=(0, 0, 0)) -> torch.Tensor:
     rounds once: so the value is the window summed one element at a time, in
     the order XLA's CPU backend takes it (measured: (t, h, w), or with
     padding the last padded axis outermost and the others in that order),
-    and the gradient F.avg_pool3d's (the same linear map; in bf16 it is not
-    rounded on the way: the windows are 1 or 2 wide, so dividing by their
-    size is exact)."""
+    and the gradient the average pool's (the same linear map; in bf16 it is
+    not rounded on the way: the windows are 1 or 2 wide, so dividing by
+    their size is exact)."""
     if x.dtype in (torch.float32, torch.float64):
         return F.avg_pool3d(x, kernel, stride=stride, padding=pad, count_include_pad=True)
-    # the CPU backend has no bf16 avg_pool3d: its gradient's map in float32
-    pooled = F.avg_pool3d(x if x.is_cuda else x.float(), kernel, stride=stride, padding=pad,
-                          count_include_pad=True).to(x.dtype)
-    with torch.no_grad():
-        summed = _window_sum(x, kernel, stride, pad)
-    # summed's value, pooled's gradient (pooled - pooled.detach() is 0)
-    return summed + (pooled - pooled.detach())
+    return _SummedPool.apply(x, tuple(kernel), tuple(stride), tuple(pad))
+
+
+class _SummedPool(torch.autograd.Function):
+    """_window_sum's value, the average pool's gradient. The backward is
+    differentiable, so the gradient penalty's double backward goes through."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, pad):
+        ctx.shape, ctx.args = x.shape, (kernel, stride, pad)
+        return _window_sum(x, kernel, stride, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the CPU backend has no bf16 average pool: its map in float32 there
+        dtype = torch.float32 if g.device.type == "cpu" else g.dtype
+        gx = torch.ops.aten.avg_pool3d_backward(
+            g.to(dtype), g.new_empty(ctx.shape, dtype=dtype), *ctx.args, False, True, None)
+        return gx.to(g.dtype), None, None, None
 
 
 def _window_sum(x, kernel, stride, pad):

@@ -161,10 +161,7 @@ def _restore_like(template, state, path):
         raise ValueError(f"checkpoint leaf {path} has shape {np.shape(state)}, the "
                          f"state {shape}")
     if _is_bf16(template):
-        return (state if isinstance(state, msgpack.BFloat16Array)
-                else msgpack.BFloat16Array.from_float32(state))
-    if isinstance(state, msgpack.BFloat16Array):
-        state = state.to_float32()
+        return msgpack.BFloat16Array.from_float32(state)
     arr = np.asarray(state)
     dtype = _dtype_of(template)
     return arr.astype(dtype) if dtype is not None and arr.dtype != dtype else arr

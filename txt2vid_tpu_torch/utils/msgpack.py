@@ -195,23 +195,21 @@ def _dtype(name: str):
     return np.dtype(name)
 
 
-def _ndarray_from(data, bf16_bits: bool = False) -> np.ndarray:
+def _ndarray_from(data) -> np.ndarray:
     shape, name, buf = _Reader(data, raw=True).read_all()
     name = name.decode() if isinstance(name, bytes) else name
     dtype = _dtype(name)
     if dtype is None:        # bfloat16: the high half of a float32
-        bits = np.frombuffer(buf, dtype=np.uint16).reshape(shape)
-        return BFloat16Array.from_bits(bits) if bf16_bits else BFloat16Array.to_float32(
-            bits.view(BFloat16Array))
+        return np.frombuffer(buf, dtype=np.uint16).reshape(shape).view(
+            BFloat16Array).to_float32()
     return np.frombuffer(buf, dtype=dtype).reshape(shape)
 
 
 class _Reader:
-    def __init__(self, data, raw: bool = False, bf16_bits: bool = False):
+    def __init__(self, data, raw: bool = False):
         self.data = memoryview(data)
         self.pos = 0
         self.raw = raw
-        self.bf16_bits = bf16_bits
 
     def read_all(self):
         obj = self.read()
@@ -238,9 +236,9 @@ class _Reader:
         code = self._unpack("b")
         data = self._take(n)
         if code == EXT_NDARRAY:
-            return _ndarray_from(data, self.bf16_bits)
+            return _ndarray_from(data)
         if code == EXT_NPSCALAR:
-            return _ndarray_from(data, self.bf16_bits)[()]
+            return _ndarray_from(data)[()]
         raise ValueError(f"unknown msgpack ext type {code}")
 
     def read(self):
@@ -302,8 +300,8 @@ def _unchunk(tree):
     return tree
 
 
-def unpackb(data: bytes, bf16_bits: bool = False):
+def unpackb(data: bytes):
     """What flax's `msgpack_restore` returns for `data`: nested dicts with
     numpy array leaves (read-only views of `data`), chunked arrays joined; a
-    bfloat16 leaf as float32, or with bf16_bits as a BFloat16Array."""
-    return _unchunk(_Reader(data, bf16_bits=bf16_bits).read_all())
+    bfloat16 leaf as float32."""
+    return _unchunk(_Reader(data).read_all())
