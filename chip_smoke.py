@@ -53,7 +53,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    3 steps, which phase bf16 prints beside the bf16 stack's.
 6. cli: the training CLI as users run it. 80 synthetic clips (16x64x64x3)
    and a vocabulary written by the port's own generator to a directory under
-   build/ (removed at the end), then `txt2vid_tpu_torch.train.gan.main`
+   build/ (removed after phase eval), then `txt2vid_tpu_torch.train.gan.main`
    in-process at scripts/run_tganv2_cond.sh's configuration (the flagship G
    and D at full width, Seq2Seq, frame sizes 8/16/32/64 with the subsample
    pyramid, RSGAN, Adam 2e-4 (0.5, 0.999), batch 40) plus --gp_lambda 0.5
@@ -94,8 +94,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    `txt2vid_tpu_torch.serve.main`, live and with --ema: K1 once per chunk of
    8 at (256, 4096, 1024, 8, 32), the videos within 1e-4 (uint8 within 1) of
    the same service under no_kernel().
-
-8. bf16: bfloat16 compute through the same entry points. scripts/r4_ema64.sh's
+8. eval: the evaluation CLIs in-process on the last checkpoints of phases cli
+   and cond128 (their data and checkpoints stay until this phase has run).
+   The 64-px flagship: `txt2vid_tpu_torch.sample` with --format png and gif,
+   each live and --ema, on 8 captions (the files, GIF89a, --ema not the live
+   videos), `eval.run` on phase cli's clips with the discriminator FID (2
+   batches of 32), `eval.alignment` with scripts/r4_ema64.sh:64-76's flags
+   (--k_per_class 32 --seed 5, live and --ema) at phase cli's specs; cond-128:
+   scripts/r9_eval_sweep.sh's `eval.run --num 256 --batch_size 16 --seed 5
+   --no_discrim_fid` on phase cond128's packed clips and its `eval.alignment`.
+   Every report finite, TF32 off after each CLI's main, fid_cls of eval.run's
+   real clips against themselves at most 1e-6; the first sampling call at each
+   (batch, video shape) repeated from the same z under no_kernel(), within
+   1e-4; K1's launches counted against the number the batches give (one per
+   generator batch, one per discriminator-feature batch) and its input shapes
+   recorded; phase cli's clips and real_data_ceiling on them against this
+   generator's CPU reading for --seed 0 (the clips' sha256 and the ceiling).
+   Prints each CLI's seconds and the videos sampled per second.
+9. bf16: bfloat16 compute through the same entry points. scripts/r4_ema64.sh's
    command line (the 64-px flagship with 1 channel and the proj head, GP 0.5
    every step, EMA, batch 40, --bf16 --bf16_nu) on 80 packed 16x64x64x1
    clips the port writes: 6 steps, each finite and launching K1 17 and K2, K3
@@ -107,7 +123,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cli's float32 ones; one bf16 step with the kernels and one under
    no_kernel() against a float32 step of the same state (leaf by leaf, the
    kernels' Adam first moments no further from it than 2x the plain step's,
-   that floored at two bf16 ulps of the leaf scale; losses within 2e-2).
+   that floored at two bf16 ulps of the leaf scale; losses within 2e-2; the
+   leaves no loss reads, those whose float32 gradient in the same run is at
+   most 1e-6 of their side's largest (the D heads' biases under RSGAN),
+   printed with that reading and not held: `loss_free_leaves`).
    Then scripts/r9_session.sh's run_chunk bf16 (--bf16 --bf16_nu
    --bf16_params) at cond-128 on phase cond128's clips: 6 steps at
    14/10/10 launches, each step's finiteness, ms and the peak memory; where
@@ -118,6 +137,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    uint8 within 2), and the port's bench with the JAX bench's bf16 stack
    (--bf16 --bf16_nu --bf16_params --shared_gen_fwd) and a profile of 3
    steps, beside phase train's float32 timing.
+10. txt: the sentence-encoder pretraining, `txt2vid_tpu_torch.train.txt`
+   in-process at full width (Seq2Seq 256/256/4, batch 64, --max_len 32, lr
+   1e-4) on 1280
+   captions of the synthetic grammar for 3 epochs (48 steps) with
+   --save_every 16: finite losses, teacher-forced and free steps both run and
+   each kind's loss falls, txt_iter_16/32/48 and txt_final written,
+   txt_final byte for byte the encoding of the state in memory, and the
+   training CLI's --sent_weights reader loads it into a fresh encoder that
+   encodes alike. No attention kernel is on this path. Prints ms per step.
 
 Each phase prints its seconds. The kernels line holds each kernel twice: its
 float32 instantiations (K1 at the serving shape, K2 and K3 at the training
@@ -130,6 +158,9 @@ from its own sources; phase float64 reads their drift beside this one's, and
 a phase compare after it times them beside this one's at the same shapes, in
 float32 and bfloat16, in the order baseline, this, this, baseline.
 
+K1's float32 record also holds phase eval's launches and shapes
+("eval_launches", "eval_shapes").
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -137,6 +168,7 @@ The line before the last is {"kernels": [...]}; the last is
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import math
@@ -154,16 +186,23 @@ import numpy as np
 import torch
 
 from txt2vid_tpu_torch import bench
+from txt2vid_tpu_torch import sample as sample_mod
 from txt2vid_tpu_torch import serve as serve_mod
-from txt2vid_tpu_torch.convert import torch_state_to_jax
+from txt2vid_tpu_torch.convert import load_encoder_vars, torch_state_to_jax, txt_state_to_jax
 from txt2vid_tpu_torch.data import build_vocab, load_pickle
 from txt2vid_tpu_torch.data import packed
 from txt2vid_tpu_torch.data.synthetic import generate_examples, moving_digit_captions
+from txt2vid_tpu_torch.eval import alignment as alignment_mod
+from txt2vid_tpu_torch.eval import classifier as classifier_mod
+from txt2vid_tpu_torch.eval import run as run_mod
 from txt2vid_tpu_torch.gan import ema as ema_mod
+from txt2vid_tpu_torch.gan import trainer as trainer_mod
 from txt2vid_tpu_torch.gan.train_step import TrainStep, adam
 from txt2vid_tpu_torch.models import layers as layers_mod
 from txt2vid_tpu_torch.models.layers import Attention, Attention3d
+from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops import _build
+from txt2vid_tpu_torch.ops import attention as attention_mod
 from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
     SUPPORTED_DV, attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
@@ -172,6 +211,7 @@ from txt2vid_tpu_torch.ops.fused_attention import (
 from txt2vid_tpu_torch.ops.optim import AdamStorage
 from txt2vid_tpu_torch.serve import GeneratorService
 from txt2vid_tpu_torch.train import gan as train_gan
+from txt2vid_tpu_torch.train import txt as txt_mod
 from txt2vid_tpu_torch.utils import checkpoint, msgpack
 
 # NVIDIA H100 SXM data sheet: HBM bandwidth, float32 outside the tensor cores,
@@ -1107,16 +1147,9 @@ def same_tree(a, b, what):
     return len(fa)
 
 
-def phase_cli(seed):
-    """The training CLI at the flagship's width; returns its launch counts."""
-    root = smoke_dir("cli_smoke_")
-    try:
-        return _phase_cli(root, seed)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _phase_cli(root, seed):
+def phase_cli(seed, root):
+    """The training CLI at the flagship's width, its data and checkpoints
+    under root (phase eval reads them); returns its launch counts."""
     t0 = time.perf_counter()
     sents = generate_examples(root / "videos", root / "sent.pickle", num_examples=CLI_CLIPS,
                               frame_size=(64, 64), num_frames=16, seed=seed, num_channels=3)
@@ -1214,6 +1247,10 @@ def _phase_cli(root, seed):
     ema_ms = cuda_ms(lambda: update(avg, gen))
     print(f"phase cli: EMA update of the generator's "
           f"{sum(p.numel() for p in gen.parameters())} parameters {ema_ms:.4f} ms")
+    latest = checkpoint.latest_checkpoint(out)
+    for p in out.glob("iter_*"):
+        if not str(p).startswith(latest):
+            p.unlink()                  # phase eval reads the last one and its .ema
     return totals, step_ms
 
 
@@ -1676,6 +1713,47 @@ def float32_step(step):
                      dataclasses.replace(step.config, compute_dtype=None), step.seed)
 
 
+def adam_gradients(step, start):
+    """"side name" -> the gradient a step's Adam took at each leaf, from the
+    first moments before it (StateSnapshot `start`, zeros where it had none)
+    and after it: (m' - b1 m) / (1 - b1)."""
+    out = {}
+    for side, module, opt, saved in (("G", step.gan.gen, step.opt_g, start.opts[0]),
+                                     ("D", step.gan.discrims[0], step.opt_d, start.opts[1])):
+        g = opt.param_groups[0]
+        b1 = g["betas"][0] if "betas" in g else g["b1"]
+        for n, p in module.named_parameters():
+            m = opt.state[p]["exp_avg"].float()
+            before = saved.get(p, {"exp_avg": torch.zeros_like(m), "step": 0})
+            check(int(opt.state[p]["step"]) == int(before["step"]) + 1,
+                  f"adam_gradients: {side} {n} took more than one update in the step")
+            out[f"{side} {n}"] = (m - b1 * before["exp_avg"].float()) / (1 - b1)
+    return out
+
+
+# a leaf whose float32 gradient is at most this share of its side's largest
+# gradient is one no loss reads (zero but for rounding)
+LOSS_FREE_TOL = 1e-6
+
+
+def loss_free_leaves(grads):
+    """The leaves no loss reads, as a float32 step's gradients (adam_gradients)
+    show them: {"side name": max|g| over its side's largest max|g|} for each
+    leaf at most LOSS_FREE_TOL. Under RSGAN every discriminator output enters
+    a loss only as real - fake, so D's head biases cancel. In bf16 their
+    moments hold the order in which autograd sums the bf16 parameter copy's
+    gradients over the heads' uses, each partial sum rounded to bf16 (as JAX
+    sums a bf16 cotangent): up to half a bf16 ulp of the head gradients, in
+    an order that differs between the kernels' graph and no_kernel()'s, on a
+    parameter whose value no loss sees."""
+    out = {}
+    for side in {k.split(" ", 1)[0] for k in grads}:
+        reading = {k: float(g.abs().max()) for k, g in grads.items() if k.startswith(side + " ")}
+        top = max(reading.values())
+        out.update({k: r / top for k, r in reading.items() if r <= LOSS_FREE_TOL * top})
+    return out
+
+
 def compare_bf16_step(step, batch, phase):
     """One bf16 step from one state and set of draws, every attention gamma 1:
     with the kernels, under no_kernel(), and in float32 (no_kernel(), the
@@ -1694,6 +1772,8 @@ def compare_bf16_step(step, batch, phase):
     start = StateSnapshot(step)
     draws = step.draw(batch["video"].shape[0], batch["video"].device)
 
+    grads = {}
+
     def run(mode):
         s = step
         old = None
@@ -1707,6 +1787,8 @@ def compare_bf16_step(step, batch, phase):
             mom = {k: {n: opt.state[p]["exp_avg"].float().clone()
                        for n, p in modules[k].named_parameters()}
                    for k, opt in (("G", s.opt_g), ("D", s.opt_d))}
+            if mode == "float32":
+                grads.update(adam_gradients(s, start))
         finally:
             if old is not None:
                 restore_compute_dtype(old)
@@ -1726,8 +1808,10 @@ def compare_bf16_step(step, batch, phase):
         return out
 
     dist = {mode: distance(runs[mode][1]) for mode in ("kernel", "plain")}
+    inert = loss_free_leaves(grads)
     # leaf by leaf: the kernels' distance over the plain step's, floored
-    ratio = {k: dist["kernel"][k] / max(dist["plain"][k], BF16_FLOOR) for k in dist["plain"]}
+    ratio = {k: dist["kernel"][k] / max(dist["plain"][k], BF16_FLOOR)
+             for k in dist["plain"] if k not in inert}
     worst = max(ratio, key=ratio.get)
     finite = all(math.isfinite(v) for mode in runs for v in runs[mode][0].values())
     loss_err = max(abs(runs["kernel"][0][k] - runs["plain"][0][k]) / abs(runs["plain"][0][k])
@@ -1741,6 +1825,11 @@ def compare_bf16_step(step, batch, phase):
           f"leaf scale), kernels / no_kernel(): largest {max(dist['kernel'].values()):.4g} / "
           f"{max(dist['plain'].values()):.4g}; attention projections " + ", ".join(
               f"{k} {dist['kernel'][k]:.4g} / {dist['plain'][k]:.4g}" for k in attn))
+    if inert:
+        print(f"phase {phase}: leaves no loss reads, their float32 gradient at most "
+              f"{LOSS_FREE_TOL:g} of their side's largest (not held): " + ", ".join(
+                  f"{k} gradient {inert[k]:.3g}, distance {dist['kernel'][k]:.4g} / "
+                  f"{dist['plain'][k]:.4g}" for k in sorted(inert)))
     print(f"phase {phase}: leaf by leaf, kernels over max(no_kernel(), two bf16 ulps "
           f"{BF16_FLOOR:.4g}): largest {ratio[worst]:.4g} at {worst} ({dist['kernel'][worst]:.4g} "
           f"/ {dist['plain'][worst]:.4g}), tol {BF16_STEP_RATIO}: "
@@ -1967,6 +2056,294 @@ def phase_bf16(seed, cond_root, f32_cli_ms, f32_serve_ms, f32_bench):
     return {"cli": cli, "cond128": cond["launches"], "serve": serve_launches}
 
 
+# phase txt: the sentence-encoder pretraining at full width (scripts/run_sent.sh's
+# train.txt: Seq2Seq 256/256/4, batch 64, --max_len 32, lr 1e-4) on
+# TXT_CAPTIONS captions of the synthetic grammar, with --save_every 16
+TXT_CAPTIONS, TXT_EPOCHS, TXT_BATCH, TXT_SAVE_EVERY = 1280, 3, 64, 16
+TXT_STEPS = TXT_EPOCHS * (int(0.8 * TXT_CAPTIONS) // TXT_BATCH)
+
+
+def phase_txt(seed):
+    root = smoke_dir("txt_smoke_")
+    try:
+        return _phase_txt(root, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_txt(root, seed):
+    caps = moving_digit_captions(TXT_CAPTIONS, seed)
+    with open(root / "sent.pickle", "wb") as f:
+        pickle.dump({i: [c] for i, c in enumerate(caps)}, f)
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab(caps), f)
+    steps = []
+    make_step = txt_mod.make_step
+
+    def recording_make_step(model, opt):
+        step = make_step(model, opt)
+
+        def timed(captions, lengths, teacher_force):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(captions, lengths, teacher_force))
+            steps.append({"teacher_force": bool(teacher_force), "loss": loss,
+                          "ms": 1e3 * (time.perf_counter() - t0)})
+            return torch.tensor(loss)
+        return timed
+
+    txt_mod.make_step = recording_make_step
+    tf32_on()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        model, opt = txt_mod.main(txt_mod.build_parser().parse_args([
+            "--sentences", str(root / "sent.pickle"), "--vocab", str(root / "vocab.pickle"),
+            "--out", str(root / "out"), "--epochs", str(TXT_EPOCHS),
+            "--batch_size", str(TXT_BATCH), "--max_len", "32", "--lr", "1e-4",
+            "--save_every", str(TXT_SAVE_EVERY), "--log_every", str(TXT_SAVE_EVERY),
+            "--seed", str(seed)]))
+    finally:
+        txt_mod.make_step = make_step
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check_tf32_off("txt")
+    check(len(steps) == TXT_STEPS, f"txt: {len(steps)} steps run, {TXT_STEPS} expected")
+    check(all(math.isfinite(s["loss"]) for s in steps), "txt: a non-finite loss")
+    kinds = {tf: [s for s in steps if s["teacher_force"] == tf] for tf in (True, False)}
+    check(all(len(v) >= 4 for v in kinds.values()),
+          f"txt: {len(kinds[True])} teacher-forced and {len(kinds[False])} free steps")
+    for tf, v in kinds.items():
+        first = statistics.mean(s["loss"] for s in v[:3])
+        last = statistics.mean(s["loss"] for s in v[-3:])
+        print(f"phase txt: {'teacher-forced' if tf else 'free'} steps: {len(v)}, loss "
+              f"{first:.4f} (mean of the first 3) -> {last:.4f} (the last 3), median "
+              f"{statistics.median(s['ms'] for s in v[2:]):.2f} ms/step")
+        check(last < first, f"txt: the {'teacher-forced' if tf else 'free'} loss did not fall")
+    check(sum(counts().values()) == 0, "txt: an attention kernel was launched")
+    out = root / "out"
+    saved = sorted(p.name for p in out.iterdir() if p.name.startswith("txt_"))
+    want = sorted([f"txt_iter_{i}" for i in range(TXT_SAVE_EVERY, TXT_STEPS + 1,
+                                                   TXT_SAVE_EVERY)] + ["txt_final"])
+    check(saved == want, f"txt: checkpoints {saved}, expected {want}")
+    state = checkpoint.to_host(txt_state_to_jax(model, opt))
+    check((out / "txt_final").read_bytes() == msgpack.packb(state),
+          "txt: txt_final is not the encoding of the state in memory")
+    # --sent_weights: train/gan.py's reader into a fresh encoder
+    enc = Seq2Seq(vocab_size=model.encoder.embed.num_embeddings).cuda()
+    with torch.no_grad():
+        load_encoder_vars(enc, checkpoint.restore_txt_vars(out / "txt_final"))
+    mine, theirs = enc.state_dict(), model.state_dict()
+    check(mine.keys() == theirs.keys() and all(torch.equal(mine[k], theirs[k]) for k in mine),
+          "txt: --sent_weights did not load the trained encoder")
+    toks = torch.randint(1, enc.encoder.embed.num_embeddings, (8, 12), device="cuda")
+    with torch.no_grad():
+        check(torch.equal(enc.encode(toks)[2], model.encode(toks)[2]),
+              "txt: the loaded encoder encodes otherwise")
+    ms = statistics.median(s["ms"] for s in steps[2:])
+    print(f"phase txt: {TXT_STEPS} steps of batch {TXT_BATCH} in {run_s:.2f} s with "
+          f"validation and {len(saved)} checkpoints ({(out / 'txt_final').stat().st_size} "
+          f"bytes), median {ms:.2f} ms/step; txt_final is the state in memory byte for "
+          f"byte, and --sent_weights reads it into the encoder")
+    return ms
+
+
+# phase eval: the evaluation CLIs on the checkpoints of phases cli and cond128.
+# The 64-px flagship: `sample` (png and gif, live and --ema), eval.run with the
+# discriminator FID, and eval.alignment with scripts/r4_ema64.sh:64-76's flags
+# (--k_per_class 32 --seed 5, live and --ema) at phase cli's specs (3 channels,
+# the default D head); cond-128: r9_eval_sweep.sh:46-66's eval.run
+# (--num 256 --batch_size 16 --seed 5 --no_discrim_fid, on phase cond128's
+# packed clips) and eval.alignment (live)
+EVAL_TOL = 1e-4
+# phase cli's 80 clips for --seed 0, as this generator writes them on a CPU:
+# the sha256 of the concatenated arrays and real_data_ceiling's reading
+CLI_CLIPS_SHA256_SEED0 = "b9101ee805c18341e049e86feaca3514c9963be9ddb62617525b2db970061d64"
+CEILING_SEED0 = {"real_accuracy_4way": 1.0, "real_accuracy_digit": 1.0, "n": 80}
+
+
+class SampleCheck:
+    """While installed, every gan/trainer.sample call (the sampling of the
+    eval CLIs) is timed, and the first at each (batch, video shape) is
+    repeated from the same z under no_kernel(): the final scales within
+    EVAL_TOL of the scale. The attention forward's input shapes are recorded."""
+
+    def __init__(self):
+        self.orig = trainer_mod.sample
+        self.orig_attn = attention_mod.fused_attention
+        self.seen, self.shapes = {}, set()
+        self.rate = {}                       # video shape -> [videos, seconds]
+
+    def __enter__(self):
+        chk = self
+
+        def sample(gen, batch_size, generator, cond=None, latent_size=None):
+            state = generator.get_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = chk.orig(gen, batch_size, generator, cond=cond, latent_size=latent_size)
+            rate = chk.rate.setdefault(out[-1].shape[1:], [0, 0.0])
+            rate[0] += batch_size
+            rate[1] += time.perf_counter() - t0
+            key = (batch_size, out[-1].shape[1:])
+            if key not in chk.seen:
+                with no_kernel():
+                    plain = chk.orig(gen, batch_size, torch.Generator().set_state(state),
+                                     cond=cond, latent_size=latent_size)
+                ref = torch.from_numpy(plain[-1])
+                err, scale = max_err(ref, torch.from_numpy(out[-1]))
+                chk.seen[key] = err
+                check(np.isfinite(out[-1]).all(), f"eval: non-finite videos at {key}")
+                check(err <= EVAL_TOL * scale, f"eval: the sampled videos at {key} stray "
+                      f"{err:.3g} from no_kernel()'s (tol {EVAL_TOL * scale:.3g})")
+            return out
+
+        def attention(theta, phi, g, return_lse=False):
+            chk.shapes.add((*theta.shape[:2], phi.shape[1], theta.shape[2], g.shape[2]))
+            return chk.orig_attn(theta, phi, g, return_lse=return_lse)
+
+        trainer_mod.sample = sample_mod.sample = sample
+        attention_mod.fused_attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod.sample = sample_mod.sample = self.orig
+        attention_mod.fused_attention = self.orig_attn
+
+
+def run_eval_cli(module, argv, what):
+    """`module`'s main in-process on argv, TF32 on before it; returns
+    (result, seconds)."""
+    tf32_on()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = module.main(module.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_tf32_off(f"eval {what}")
+    return out, dt
+
+
+def finite_report(report, what):
+    bad = {k: v for k, v in report.items()
+           if isinstance(v, float) and not math.isfinite(v)}
+    check(not bad, f"eval {what}: non-finite {bad}")
+    print(f"phase eval: {what}: {json.dumps(report)}")
+
+
+def phase_eval(seed, cli_root, cond_root):
+    """Returns K1's launches and input shapes in the phase."""
+    zero_counts()
+    expect = 0
+    with SampleCheck() as chk:
+        weights = checkpoint.latest_checkpoint(cli_root / "out")
+        spec = ["--weights", weights, "--G", "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+                "--D", "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
+                "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+                "--vocab", str(cli_root / "vocab.pickle"),
+                "--frame_sizes", "8", "16", "32", "64", "--num_frames", "16",
+                "--num_channels", "3"]
+        made = {}
+        for fmt, ema in (("png", False), ("png", True), ("gif", False), ("gif", True)):
+            out_dir = cli_root / f"samples_{fmt}_{ema}"
+            videos, dt = run_eval_cli(sample_mod, spec + [
+                "--format", fmt, "--sentences", *moving_digit_captions(8, seed),
+                "--seed", str(seed),
+                "--out_samples", str(out_dir), *(["--ema"] if ema else [])],
+                f"sample --format {fmt}{' --ema' if ema else ''}")
+            files = sorted(p.name for p in out_dir.iterdir())
+            want = (["sample_64x64.png"] if fmt == "png"
+                    else [f"sample_64x64_{i}.gif" for i in range(8)])
+            check(files == want, f"eval sample: wrote {files}")
+            if fmt == "gif":
+                check(all((out_dir / n).read_bytes()[:6] == b"GIF89a" for n in files),
+                      "eval sample: not a GIF")
+            check(videos.shape == (8, 16, 64, 64, 3) and np.isfinite(videos).all(),
+                  f"eval sample: videos {videos.shape}")
+            made[fmt, ema] = videos
+            expect += 1
+            print(f"phase eval: sample --format {fmt}{' --ema' if ema else ''}: {len(files)} "
+                  f"files in {dt:.2f} s with the checkpoint's load")
+        for fmt in ("png", "gif"):
+            check(not np.allclose(made[fmt, False], made[fmt, True], rtol=0, atol=1e-3),
+                  f"eval sample --format {fmt}: --ema sampled the live generator's videos")
+
+        captured = {}
+        report_fn = run_mod.sample_fidelity_report
+
+        def capturing(real, fake, **kw):
+            captured["real"], captured["fake"] = real, fake
+            return report_fn(real, fake, **kw)
+
+        run_mod.sample_fidelity_report = capturing
+        try:
+            report, dt = run_eval_cli(run_mod, spec + [
+                "--data", str(cli_root / "videos"), "--anno", str(cli_root / "sent.pickle"),
+                "--batch_size", "32", "--seed", str(seed)], "eval.run 64 px")
+        finally:
+            run_mod.sample_fidelity_report = report_fn
+        finite_report(report, f"eval.run 64 px ({dt:.2f} s)")
+        n_real = len(captured["real"])
+        check({"fid_random_conv", "fid_discrim", "fid_cls"} <= set(report) and n_real == 64,
+              f"eval.run: {sorted(report)} over {n_real} clips")
+        expect += 2 * (n_real // 32) + n_real // 32     # G per batch, D on real and fake
+        self_fid = classifier_mod.classifier_fid(captured["real"], captured["real"],
+                                                 batch_size=32, device="cuda")
+        print(f"phase eval: fid_cls of the {n_real} real clips against themselves "
+              f"{self_fid:.3g} (limit 1e-6)")
+        check(self_fid <= 1e-6, "eval: fid_cls of a clip set against itself")
+
+        for ema in (False, True):
+            report, dt = run_eval_cli(alignment_mod, spec + [
+                "--k_per_class", "32", "--seed", "5", *(["--ema"] if ema else [])],
+                f"eval.alignment 64 px{' --ema' if ema else ''}")
+            finite_report(report, f"eval.alignment 64 px{' --ema' if ema else ''} "
+                                  f"({dt:.2f} s)")
+            check(report["n"] == 128, f"eval.alignment: n {report['n']}")
+            expect += -(-128 // 40)
+
+        h = hashlib.sha256()
+        for i in range(CLI_CLIPS):
+            h.update(np.load(cli_root / "videos" / f"{i}.npy").tobytes())
+        ceiling = alignment_mod.real_data_ceiling(cli_root / "videos", cli_root / "sent.pickle")
+        print(f"phase eval: real_data_ceiling on phase cli's clips {ceiling}; the clips' "
+              f"sha256 {h.hexdigest()}")
+        if seed == 0:
+            check(h.hexdigest() == CLI_CLIPS_SHA256_SEED0 and ceiling == CEILING_SEED0,
+                  "eval: phase cli's clips or their ceiling differ from the CPU's for seed 0")
+
+        weights = checkpoint.latest_checkpoint(cond_root / "out")
+        spec = ["--weights", weights, "--G", COND128_G, "--D", COND128_D,
+                "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+                "--vocab", str(cond_root / "vocab.pickle"),
+                "--frame_sizes", *map(str, COND128_FRAME_SIZES),
+                "--num_frames", str(COND128_FRAMES), "--num_channels", "1"]
+        data = json.dumps({"class": "txt2vid_tpu.data.packed.packed_dataset",
+                           "args": {"data": str(cond_root / "videos.t2vc")}})
+        report, dt = run_eval_cli(run_mod, spec + [
+            "--data", data, "--anno", str(cond_root / "sent.pickle"), "--num", "256",
+            "--batch_size", "16", "--seed", "5", "--no_discrim_fid"], "eval.run cond-128")
+        finite_report(report, f"eval.run cond-128 ({dt:.2f} s)")
+        check("fid_cls" in report and "fid_discrim" not in report,
+              f"eval.run cond-128: {sorted(report)}")
+        expect += COND128_CLIPS // 16
+        report, dt = run_eval_cli(alignment_mod, spec + ["--k_per_class", "32", "--seed", "5"],
+                                  "eval.alignment cond-128")
+        finite_report(report, f"eval.alignment cond-128 ({dt:.2f} s)")
+        expect += -(-128 // 40)
+    launches = fused_attention.launches
+    for shape, (n, sec) in chk.rate.items():
+        print(f"phase eval: sampled {n} videos of {tuple(shape)} in {sec:.3f} s, "
+              f"{n / sec:.2f} videos/s (host clock, synchronized; each CLI's first call "
+              f"included)")
+    print(f"phase eval: K1 launches {launches} (expected {expect}) at (B, N, M, d, dv) "
+          f"{sorted(chk.shapes)}; kernel vs no_kernel() max|diff| per (batch, shape) "
+          f"{ {f'{b} x {tuple(s)}': f'{e:.3g}' for (b, s), e in chk.seen.items()} }")
+    check(launches == expect and fused_attention.dtype_launches[torch.float32] == launches,
+          f"eval: K1 launched {launches} times, {expect} expected")
+    return {"launches": launches, "shapes": sorted(chk.shapes)}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2000,13 +2377,17 @@ def main():
         timed("compare", phase_compare, base, args.seed)
     serve_launches, serve_ms = timed("serve", phase_serve, args.seed)
     train, f32_bench = timed("train", phase_train, args.seed)
-    cli, cli_ms = timed("cli", phase_cli, args.seed)
-    cond_root = smoke_dir("cond128_smoke_")
+    cli_root, cond_root = smoke_dir("cli_smoke_"), smoke_dir("cond128_smoke_")
     try:
+        cli, cli_ms = timed("cli", phase_cli, args.seed, cli_root)
         cond = timed("cond128", phase_cond128, args.seed, cond_root)
+        evaluation = timed("eval", phase_eval, args.seed, cli_root, cond_root)
+        shutil.rmtree(cli_root, ignore_errors=True)
         bf16 = timed("bf16", phase_bf16, args.seed, cond_root, cli_ms, serve_ms, f32_bench)
     finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
         shutil.rmtree(cond_root, ignore_errors=True)
+    timed("txt", phase_txt, args.seed)
     for r in records + bf16_records:
         r["tc_instructions"] = tc[r["name"]]
     records[0]["launches"] = serve_launches
@@ -2019,6 +2400,9 @@ def main():
         r["cond128_launches"] = cond["launches"][r["name"]]
         r["cond128_launches_per_step"] = cond["per_step"][r["name"]]
     records[0]["cond128_serve_launches"] = cond["serve_launches"]
+    # the evaluation CLIs' sampling and discriminator features (phase eval)
+    records[0]["eval_launches"] = evaluation["launches"]
+    records[0]["eval_shapes"] = evaluation["shapes"]
     # the bf16 instantiations: launches of phase bf16's 64-px command line (its
     # first run of 6 steps), of its cond-128 chunk and of its service
     for r in bf16_records:

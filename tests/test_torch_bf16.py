@@ -31,7 +31,9 @@ numpy seeds (test_torch_models' `random_variables`: nothing at its init value).
 - chip_smoke's in-step rule for the bf16 kernels (leaf by leaf, 2x the plain
   step's distance floored at two bf16 ulps) through the kernels' plain
   versions: it passes them and fails a backward with dtheta zeroed or dg 10%
-  off.
+  off; the leaves it does not hold are the D heads' biases under RSGAN,
+  which get no gradient, and a bf16 copy's gradient summed over several uses
+  depends on the order, in the port and in JAX alike.
 - The checkpoint of a bf16-moment state is byte for byte what flax's
   serializer writes, and restores under a float32 config and back.
 - `serve --bf16` against txt2vid_tpu.serve with bf16=True from one
@@ -571,6 +573,53 @@ def _broken(index, factor):
         out[index] = out[index] * factor
         return tuple(out)
     return bwd
+
+
+def test_the_rule_skips_only_leaves_no_loss_reads():
+    """chip_smoke's bf16 step rule skips the leaves whose float32 gradient in
+    the same run, read off Adam's first moments, is at most 1e-6 of their
+    side's largest. Under RSGAN the discriminator's head biases cancel in
+    real - fake, and a conv's bias before a batch-statistics BatchNorm
+    cancels in the normalisation: both are skipped; under the vanilla loss
+    the head biases are held. A bf16 parameter copy used by several heads
+    sums their gradients in bf16, as JAX sums a bf16 cotangent, which leaves
+    a residue that depends on the order."""
+    torch.manual_seed(0)
+    step = _port_step((False, False, False))
+    video, caps, lens = _batch()
+    batch = {"video": torch.from_numpy(video), "captions": torch.from_numpy(caps).long(),
+             "lengths": torch.from_numpy(lens)}
+    step(batch)
+
+    def gradients():
+        """A float32 step's gradients as chip_smoke reads them off the first
+        moments, after a step that left them nonzero."""
+        start = chip_smoke.StateSnapshot(step)
+        step(batch)
+        grads = chip_smoke.adam_gradients(step, start)
+        for side, module in (("G", step.gan.gen), ("D", step.gan.discrims[0])):
+            for n, p in module.named_parameters():
+                torch.testing.assert_close(grads[f"{side} {n}"], p.grad, rtol=1e-5, atol=1e-7)
+        return grads
+
+    inert = chip_smoke.loss_free_leaves(gradients())
+    heads = {f"D discrim.{n}.bias" for n in ("fc", "fc_uncond")}
+    before_bn = {f"G base.up{i}.conv{j}.bias" for i in range(3) for j in (1, 2)}
+    assert heads | before_bn <= set(inert) and max(inert.values()) <= 1e-6
+    step.losses = port_losses.VanillaGanLoss()
+    assert not heads & set(chip_smoke.loss_free_leaves(gradients()))
+    # one bf16 copy summing cancelling head gradients in two orders, here and
+    # in JAX's autodiff of a bf16 cast
+    vals = [4.7e-06, 0.01617, 0.02596]
+    for order in (vals + [-v for v in vals], [v for x in vals for v in (x, -x)]):
+        p = torch.zeros(1, requires_grad=True)
+        copy = p.to(torch.bfloat16)
+        sum((copy.float() * v).sum() for v in order).backward()
+        def jax_loss(q):
+            c = q.astype(BF)
+            return sum(jnp.sum(c.astype(jnp.float32) * v) for v in order)
+        ref = jax.grad(jax_loss)(jnp.zeros(1))
+        assert (float(p.grad) != 0.0) == (float(ref[0]) != 0.0) == (order[1] > 0)
 
 
 @pytest.mark.parametrize("broken", [None, (0, 0.0), (2, 0.9)],

@@ -246,7 +246,7 @@ def test_restore_rejects_a_mismatched_state(jax_init):
 
 def test_sent_weights_from_a_jax_txt_checkpoint(tmp_path):
     """A txt-pretrain file as train/txt.py writes it ({"optim", "txt"}) loads
-    into the port's Seq2Seq (to_vocab into its buffers), and the port encodes
+    into the port's Seq2Seq (to_vocab into its decoder Linear), and the port encodes
     as the JAX encoder does (1e-5 of the scale)."""
     from test_torch_models import jax_variables
     from txt2vid_tpu_torch.convert import load_encoder_vars
@@ -264,7 +264,7 @@ def test_sent_weights_from_a_jax_txt_checkpoint(tmp_path):
     with torch.no_grad():
         load_encoder_vars(port, checkpoint.restore_txt_vars(path))
     tv = t_vars["params"]["encoder"]["to_vocab"]
-    assert torch.equal(port.encoder.to_vocab_weight, torch.from_numpy(np.asarray(tv["kernel"]).T))
+    assert torch.equal(port.encoder.to_vocab.weight, torch.from_numpy(np.asarray(tv["kernel"]).T))
     ref = np.asarray(enc.apply(t_vars, jnp.asarray(caps), lengths=jnp.asarray(lens),
                                method=enc.encode)[2])
     got = port.encode(torch.from_numpy(caps).long(), torch.from_numpy(lens))[2].detach().numpy()

@@ -19,6 +19,7 @@ from txt2vid_tpu.data import collate as jax_collate
 from txt2vid_tpu_torch import config
 from txt2vid_tpu_torch.data import (build_vocab, collate, get_loader, load_pickle, main,
                                     my_dataset, transform_frames)
+from txt2vid_tpu_torch.data import synthetic
 from txt2vid_tpu_torch.data.synthetic import generate_examples
 from txt2vid_tpu_torch.gan import losses as port_losses
 from txt2vid_tpu_torch.gan import trainer
@@ -265,8 +266,8 @@ def test_spec_args_carry_over():
 
 
 def test_synthetic_captions_and_layout_match_jax(tmp_path):
-    """Same seed, same captions and clip layout as the JAX generator; the
-    glyphs differ (PIL's font there, a bitmap table here)."""
+    """Same seed, same captions and the same clips byte for byte as the JAX
+    generator: the port's glyphs are the JAX package's PIL-font glyphs."""
     ref = jax_synthetic.generate_examples(tmp_path / "jax", tmp_path / "jax.pickle",
                                           num_examples=12, frame_size=(32, 32),
                                           num_frames=8, seed=9, num_channels=3)
@@ -276,7 +277,27 @@ def test_synthetic_captions_and_layout_match_jax(tmp_path):
     for i in range(12):
         a, b = np.load(tmp_path / "jax" / f"{i}.npy"), np.load(tmp_path / "port" / f"{i}.npy")
         assert a.shape == b.shape == (8, 32, 32, 3) and a.dtype == b.dtype == np.uint8
-        assert b.max() == 255 and (b > 0).mean() > 0.02
+        np.testing.assert_array_equal(b, a)
+        assert b.max() > 200 and (b > 0).mean() > 0.02
+
+
+@pytest.mark.parametrize("size", [16, 28, 32, 64])
+def test_glyph_digits_match_jax(size):
+    """The glyph table resized as PIL resizes it: JAX's glyphs at every size
+    that either package's generator or digit templates use, and more."""
+    ref, got = jax_synthetic._glyph_digits(size), synthetic._glyph_digits(size)
+    assert sorted(got) == list(range(10))
+    for d in range(10):
+        assert got[d][0].shape == (size, size) and got[d][0].dtype == np.uint8
+        np.testing.assert_array_equal(got[d][0], ref[d][0])
+
+
+def test_nearest_index_is_pils():
+    from PIL import Image
+    src = np.arange(16, dtype=np.uint8)[None, :].repeat(2, 0)
+    for size in range(1, 130):
+        ref = np.asarray(Image.fromarray(src).resize((size, 2), Image.NEAREST))[0]
+        np.testing.assert_array_equal(synthetic.nearest_index(size), ref)
 
 
 @pytest.mark.parametrize("frame_size,channels,normalize", [

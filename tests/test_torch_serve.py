@@ -41,6 +41,7 @@ from txt2vid_tpu.models.txt import Seq2Seq as JaxSeq2Seq
 from txt2vid_tpu.serve import GeneratorService as JaxService
 from txt2vid_tpu.utils import checkpoint as jax_checkpoint
 from txt2vid_tpu_torch import config, serve
+from txt2vid_tpu_torch.utils import video
 from txt2vid_tpu_torch.convert import (jax_to_torch_encoder, jax_to_torch_generator,
                                        load_encoder_vars, torch_to_jax_discriminator,
                                        torch_to_jax_encoder, torch_to_jax_generator)
@@ -211,9 +212,31 @@ class TestPortService:
 
     @pytest.mark.parametrize("flags,what", [
         (["--format", "gif"], "--format gif"), (["--format", "mp4"], "--format mp4")])
-    def test_cli_flags_not_in_the_port_raise(self, flags, what):
-        with pytest.raises(NotImplementedError, match=what):
-            serve.cli(["--device", "cpu", *flags])
+    def test_cli_flags_not_in_the_port_raise(self, flags, what, monkeypatch, tmp_path):
+        """The video formats write one clip per sample (utils/video.py): a GIF
+        that PIL decodes to the served frames; mp4 through OpenCV, which
+        raises an ImportError naming .gif where cv2 is absent. --weights
+        without the specs raises."""
+        import io
+        from functools import partial
+        from PIL import Image, ImageSequence
+        monkeypatch.setattr(serve.tganv2_cond, "MultiScaleGen",
+                            partial(tganv2.MultiScaleGen, **GEN_CONFIG))
+        monkeypatch.setattr(serve, "Seq2Seq", partial(Seq2Seq, **ENC))
+        argv = ["--device", "cpu", "--num_samples", "2", "--batch_size", "2",
+                "--out_samples", str(tmp_path), *flags]
+        if what == "--format gif":
+            out = serve.cli(argv)
+            for i, v in enumerate(out):
+                im = Image.open(io.BytesIO((tmp_path / f"serve_{i}.gif").read_bytes()))
+                frames = np.stack([np.asarray(f.convert("RGB"))
+                                   for f in ImageSequence.Iterator(im)])
+                assert frames.shape == v.shape
+                assert int(np.abs(frames.astype(int) - v).max()) <= video.RGB_MAX_ERROR
+        else:
+            monkeypatch.setitem(sys.modules, "cv2", None)
+            with pytest.raises(ImportError, match=r"\.gif"):
+                serve.cli(argv)
         with pytest.raises(ValueError, match="--G and --D"):
             serve.cli(["--device", "cpu", "--weights", "iter_1"])
 

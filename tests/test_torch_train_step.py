@@ -50,8 +50,8 @@ from txt2vid_tpu.models import tganv2_cond as jax_tganv2_cond
 from txt2vid_tpu.models.txt import Seq2Seq as JaxSeq2Seq
 from txt2vid_tpu.ops import subsample as jax_subsample
 from txt2vid_tpu.utils import misc as jax_misc
-from txt2vid_tpu_torch.convert import (jax_to_torch_discriminator, jax_to_torch_encoder,
-                                       jax_to_torch_generator)
+from txt2vid_tpu_torch.convert import (jax_to_torch_discriminator, jax_to_torch_generator,
+                                       load_encoder_vars)
 from txt2vid_tpu_torch.gan import losses as port_losses
 from txt2vid_tpu_torch.gan.cond_gan import CondGan
 from txt2vid_tpu_torch.gan.train_step import (Draws, TrainConfig, adam,
@@ -113,7 +113,8 @@ def port_models(state):
     disc = tganv2.MultiScaleDiscrim(**DISC)
     disc.load_state_dict(jax_to_torch_discriminator(state.d_vars[0]["params"]))
     enc = Seq2Seq(**ENC)
-    enc.load_state_dict(jax_to_torch_encoder(state.txt_vars["params"]))
+    with torch.no_grad():       # an encode-only tree: the decoder's to_vocab stays
+        load_encoder_vars(enc, state.txt_vars)
     return gen, disc, enc
 
 

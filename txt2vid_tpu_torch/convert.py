@@ -20,15 +20,15 @@ JAX layout (transposed views). Mappings:
 - flax OptimizedLSTMCell (`l{i}_fwd|l{i}_bwd/cell/{ii,if,ig,io}/kernel (in, H)`,
   `{hi,hf,hg,ho}/{kernel (H, H), bias}`) -> nn.LSTM's `weight_ih_l{i}[_reverse]`
   (transposes concatenated i, f, g, o), `weight_hh_l{i}[_reverse]` likewise,
-  `bias_ih` = 0 and `bias_hh` = the h-biases.
+  `bias_ih` = 0 and `bias_hh` = the h-biases; the decoder's `to_vocab` Dense
+  -> its Linear. Seq2Seq's `encoder` and, with separate_decoder, its
+  `sep_decoder` map alike.
 
 - Discriminator (`MultiScaleDiscrim`): `discrim` or `discrim{i}` /
   `stem_conv1|stem_conv2|stem_skip`, `down{i}/conv1|conv2|conv_identity`,
   `attn/theta|phi|g|o` and `attn/gamma`, `fc_uncond`, `fc`, `cond_proj`.
 
-Any key that is not mapped raises, except the decoder's `to_vocab`, which is on
-neither the serving nor the training path: jax_to_torch_encoder skips it, and
-the train-state conversions carry it in the encoder's two `to_vocab` buffers.
+Any key that is not mapped raises.
 
 The train state (train_step.py:113-120, as flax serializes it): `step`,
 `g_vars` {params, batch_stats}, `d_vars` {"0": {params}, ...}, `txt_vars`
@@ -56,8 +56,12 @@ _DISC_PARAM = re.compile(
     r"|down\d+/(?:conv1|conv2|conv_identity)|attn/(?:theta|phi|g|o))/(?:kernel|bias)"
     r"|attn/gamma)$")
 _GEN_STAT = re.compile(r"^(?:(?:base/)?up\d+/bn[12]|render(?:_base|\d+)/bn)/(?:mean|var)$")
-_ENC_CELL = re.compile(r"^encoder/l(\d+)_(fwd|bwd)/cell/([ih])([ifgo])/(kernel|bias)$")
-_ENC_SKIP = re.compile(r"^encoder/to_vocab/(?:kernel|bias)$")
+_ENC_CELL = re.compile(
+    r"^(encoder|sep_decoder)/l(\d+)_(fwd|bwd)/cell/([ih])([ifgo])/(kernel|bias)$")
+_ENC_OTHER = re.compile(r"^(encoder|sep_decoder)/(?:embed/embedding|to_vocab/(kernel|bias))$")
+_TORCH_ENC = re.compile(
+    r"^(encoder|sep_decoder)\.(?:embed\.weight|to_vocab\.(weight|bias)"
+    r"|lstm\.(weight_ih|weight_hh|bias_hh|bias_ih)_l(\d+)(_reverse)?)$")
 _GATES = "ifgo"
 
 
@@ -172,25 +176,33 @@ def torch_to_jax_discriminator(state_dict) -> dict:
     return _to_params(state_dict, "discriminator")
 
 
-def torch_to_jax_encoder(state_dict, to_vocab=None) -> dict:
+def torch_to_jax_encoder(state_dict, decoder: bool = True) -> dict:
     """The port's Seq2Seq state dict -> the flax Seq2Seq params tree; with
-    `to_vocab` = (weight (V, H), bias (V,)) the decoder's projection too.
-    Each gate's h-bias is bias_ih + bias_hh (flax's input kernels have none)."""
+    decoder=False the encoder's LSTM and embedding alone (no to_vocab, no
+    sep_decoder), what serving reads. Each gate's h-bias is bias_ih + bias_hh
+    (flax's input kernels have none)."""
     flat = {}
     for name, t in state_dict.items():
-        if name == "encoder.embed.weight":
-            flat["encoder/embed/embedding"] = t.detach()
-            continue
-        m = re.match(r"^encoder\.lstm\.(weight_ih|weight_hh|bias_hh|bias_ih)_l(\d+)(_reverse)?$",
-                     name)
+        m = _TORCH_ENC.match(name)
         if m is None:
             raise KeyError(f"unmapped encoder parameter {name}")
-        kind, layer, rev = m.groups()
+        mod, tv_leaf, kind, layer, rev = m.groups()
+        if not decoder and (mod == "sep_decoder" or tv_leaf):
+            continue
+        t = t.detach()
+        if tv_leaf == "weight":
+            flat[f"{mod}/to_vocab/kernel"] = t.t()
+            continue
+        if tv_leaf == "bias":
+            flat[f"{mod}/to_vocab/bias"] = t
+            continue
+        if kind is None:
+            flat[f"{mod}/embed/embedding"] = t
+            continue
         if kind == "bias_ih":
             continue
-        cell = f"encoder/l{layer}_{'bwd' if rev else 'fwd'}/cell"
+        cell = f"{mod}/l{layer}_{'bwd' if rev else 'fwd'}/cell"
         src = "i" if kind == "weight_ih" else "h"
-        t = t.detach()
         if kind == "bias_hh":
             t = t + state_dict[name.replace("bias_hh", "bias_ih")].detach()
         for gate, part in zip(_GATES, t.chunk(4, dim=0)):
@@ -198,9 +210,6 @@ def torch_to_jax_encoder(state_dict, to_vocab=None) -> dict:
                 flat[f"{cell}/h{gate}/bias"] = part
             else:
                 flat[f"{cell}/{src}{gate}/kernel"] = part.t()
-    if to_vocab is not None:
-        flat["encoder/to_vocab/kernel"] = to_vocab[0].detach().t()
-        flat["encoder/to_vocab/bias"] = to_vocab[1].detach()
     return _nest(flat)
 
 
@@ -210,35 +219,41 @@ def jax_to_torch_discriminator(params) -> dict:
 
 
 def jax_to_torch_encoder(params) -> dict:
-    """Seq2Seq `params` tree -> the port's Seq2Seq state dict (encoder only)."""
+    """Seq2Seq `params` tree -> the port's Seq2Seq state dict (the encoder,
+    to_vocab where the tree has it, and sep_decoder)."""
     sd = {}
-    cells = {}   # (layer, suffix) -> {"ii": kernel, "hi": (kernel, bias), ...}
+    cells = {}   # (module, layer, suffix) -> {"ii/kernel": ..., "hi/bias": ..., ...}
     for path, a in _flatten(params):
-        if path == "encoder/embed/embedding":
-            sd["encoder.embed.weight"] = _tensor(a)
-            continue
-        if _ENC_SKIP.match(path):
+        m = _ENC_OTHER.match(path)
+        if m is not None:
+            mod, leaf = m.groups()
+            if leaf is None:
+                sd[f"{mod}.embed.weight"] = _tensor(a)
+            elif leaf == "kernel":
+                sd[f"{mod}.to_vocab.weight"] = _tensor(a.T)
+            else:
+                sd[f"{mod}.to_vocab.bias"] = _tensor(a)
             continue
         m = _ENC_CELL.match(path)
         if m is None:
             raise KeyError(f"unmapped encoder param {path}")
-        layer, direction, src, gate, leaf = m.groups()
+        mod, layer, direction, src, gate, leaf = m.groups()
         if src == "i" and leaf == "bias":
             raise KeyError(f"unexpected input-kernel bias {path}")
-        key = (int(layer), "" if direction == "fwd" else "_reverse")
+        key = (mod, int(layer), "" if direction == "fwd" else "_reverse")
         cells.setdefault(key, {})[f"{src}{gate}/{leaf}"] = a
-    for (layer, suffix), c in sorted(cells.items()):
+    for (mod, layer, suffix), c in sorted(cells.items()):
         try:
             w_ih = np.concatenate([c[f"i{g}/kernel"].T for g in _GATES])
             w_hh = np.concatenate([c[f"h{g}/kernel"].T for g in _GATES])
             b_hh = np.concatenate([c[f"h{g}/bias"] for g in _GATES])
         except KeyError as e:
-            raise KeyError(f"encoder layer {layer}{suffix} lacks {e}") from None
+            raise KeyError(f"{mod} layer {layer}{suffix} lacks {e}") from None
         name = f"l{layer}{suffix}"
-        sd[f"encoder.lstm.weight_ih_{name}"] = _tensor(w_ih)
-        sd[f"encoder.lstm.weight_hh_{name}"] = _tensor(w_hh)
-        sd[f"encoder.lstm.bias_ih_{name}"] = torch.zeros(w_ih.shape[0])
-        sd[f"encoder.lstm.bias_hh_{name}"] = _tensor(b_hh)
+        sd[f"{mod}.lstm.weight_ih_{name}"] = _tensor(w_ih)
+        sd[f"{mod}.lstm.weight_hh_{name}"] = _tensor(w_hh)
+        sd[f"{mod}.lstm.bias_ih_{name}"] = torch.zeros(w_ih.shape[0])
+        sd[f"{mod}.lstm.bias_hh_{name}"] = _tensor(b_hh)
     return sd
 
 
@@ -265,8 +280,7 @@ def _adam_tree(opt, named_params, wrap):
 
 
 def _encoder_tree(enc):
-    return {"params": torch_to_jax_encoder(
-        enc.state_dict(), (enc.encoder.to_vocab_weight, enc.encoder.to_vocab_bias))}
+    return {"params": torch_to_jax_encoder(enc.state_dict())}
 
 
 def torch_state_to_jax(step) -> dict:
@@ -323,15 +337,18 @@ def _load_adam(opt, named_params, tree, unwrap):
 
 
 def load_encoder_vars(enc, txt_vars):
-    """Caption-encoder variables {"params": ...} into the port's Seq2Seq,
-    to_vocab into its buffers when the tree has it."""
-    params = txt_vars["params"]
+    """Caption-encoder variables {"params": ...} into the port's Seq2Seq. A
+    tree without to_vocab (the JAX encoder's encode-only init) leaves the
+    decoder's projection as it is; any other key missing or left over
+    raises."""
     dev = enc.encoder.embed.weight.device
-    enc.load_state_dict({k: v.to(dev) for k, v in jax_to_torch_encoder(params).items()})
-    tv = params.get("encoder", {}).get("to_vocab")
-    if tv is not None:
-        enc.encoder.to_vocab_weight.copy_(_tensor(np.asarray(tv["kernel"]).T))
-        enc.encoder.to_vocab_bias.copy_(_tensor(tv["bias"]))
+    missing, unexpected = enc.load_state_dict(
+        {k: v.to(dev) for k, v in jax_to_torch_encoder(txt_vars["params"]).items()},
+        strict=False)
+    to_vocab = {k for k in enc.state_dict() if ".to_vocab." in k}
+    if unexpected or (missing and set(missing) != to_vocab):
+        raise KeyError(f"the encoder tree does not fit the model: missing {missing}, "
+                       f"unexpected {unexpected}")
 
 
 def jax_state_to_torch(tree, step) -> None:
@@ -367,3 +384,23 @@ def jax_state_to_torch(tree, step) -> None:
                             for n, p in d.named_parameters()],
                tree["opt_d_state"], unwrap_d)
     step.step = int(np.asarray(tree["step"]))
+
+
+# ------------------------------------------------- the sentence-pretrain state
+
+def txt_state_to_jax(model, opt) -> dict:
+    """train/txt.py's checkpoint tree {"optim": optax.adam's state, "txt":
+    {"params": ...}} of a port Seq2Seq and its Adam; leaves as tensors in the
+    JAX layout. Parameters outside the optimizer (the LSTM's bias_ih, which
+    flax has no counterpart of) have zero moments."""
+    named = list(model.state_dict(keep_vars=True).items())
+    return {"optim": _adam_tree(opt, named, torch_to_jax_encoder),
+            "txt": {"params": torch_to_jax_encoder(model.state_dict())}}
+
+
+def jax_txt_state_to_torch(tree, model, opt) -> None:
+    """Load a train/txt.py checkpoint tree (numpy leaves) into a port Seq2Seq
+    and the Adam over its trainable parameters."""
+    load_encoder_vars(model, tree["txt"])
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    _load_adam(opt, named, tree["optim"], jax_to_torch_encoder)

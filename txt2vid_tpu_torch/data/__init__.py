@@ -21,9 +21,10 @@ from pathlib import Path
 
 import numpy as np
 
-from txt2vid_tpu_torch.data.vocab import Vocab, build_vocab, encode_caption, load_pickle
+from txt2vid_tpu_torch.data.vocab import (Vocab, build_vocab, encode_caption, load_pickle,
+                                         pad_captions)
 
-__all__ = ["Vocab", "build_vocab", "encode_caption", "load_pickle", "VideoDataset",
+__all__ = ["Vocab", "build_vocab", "encode_caption", "load_pickle", "pad_captions", "VideoDataset",
            "transform_frames", "collate", "Loader", "BatchLoader", "get_loader",
            "my_dataset"]
 

@@ -6,11 +6,10 @@ caption is "digit D is left and right." / "right and left" / "top and
 bottom" / "bottom and top". `generate_examples` writes the JAX package's
 layout: `<i>.npy` uint8 clips (T, H, W, C) and a {i: [caption]} pickle, with
 the same random stream, so a seed gives the JAX package's captions and
-motions. The glyphs differ: the JAX package renders PIL's default font, and
-the port, which does not use PIL, draws digits from a 5x7 bitmap table at the
-same size and stroke weight; the pixels differ, the format and captions do
-not. MNIST digits from a local raw-MNIST copy are used as the JAX package
-uses them.
+motions, and the same clips byte for byte: the glyphs are the JAX package's
+(PIL's default font), kept here as a table of its 16x16 canvases and resized
+with PIL's nearest mapping, since the port does not use PIL. MNIST digits
+from a local raw-MNIST copy are used as the JAX package uses them.
 """
 
 import gzip
@@ -22,20 +21,105 @@ import numpy as np
 
 from txt2vid_tpu_torch.utils.misc import ensure_exists
 
-_MOTIONS = ("left and right", "right and left", "top and bottom", "bottom and top")
+# the captions' motions, in the order of the classes the evaluation scores
+MOTION_CLASSES = ("left and right", "right and left", "top and bottom", "bottom and top")
 
-# 5x7 bitmaps of the digits 0-9, one string of five columns per row
-_FONT = {
-    0: ("01110", "10001", "10011", "10101", "11001", "10001", "01110"),
-    1: ("00100", "01100", "00100", "00100", "00100", "00100", "01110"),
-    2: ("01110", "10001", "00001", "00010", "00100", "01000", "11111"),
-    3: ("11110", "00001", "00001", "01110", "00001", "00001", "11110"),
-    4: ("00010", "00110", "01010", "10010", "11111", "00010", "00010"),
-    5: ("11111", "10000", "11110", "00001", "00001", "10001", "01110"),
-    6: ("00110", "01000", "10000", "11110", "10001", "10001", "01110"),
-    7: ("11111", "00001", "00010", "00100", "01000", "01000", "01000"),
-    8: ("01110", "10001", "10001", "01110", "10001", "10001", "01110"),
-    9: ("01110", "10001", "10001", "01111", "00001", "00010", "01100"),
+# The ten 16x16 canvases the JAX package draws before its resize
+# (txt2vid_tpu/data/synthetic.py:_glyph_digits): PIL's default font, the digit
+# drawn at offsets (4 + dx, 2 + dy) for dx, dy in {0, 1}, as rendered by
+# Pillow 12.1.0; each string is two rows of 16 uint8 pixels in hex. The port
+# keeps them as data: it does not use PIL.
+_CANVASES = {
+    0: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "000000000fb5ededb50f0000000000000000000091ecf5f5ec8f000000000000",
+        "00000000ebf58082f5ea00000000000000000000fcfc1c1dfbfb000000000000",
+        "00000000fdfd0404fdfd00000000000000000000fcfc1c1dfbfb000000000000",
+        "00000000ebf58082f5eb0000000000000000000091ecf5f5ec90000000000000",
+        "000000000fb5ededb50f00000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    1: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "000000000010a6faf1000000000000000000000000c7f3fffe00000000000000",
+        "0000000000c9e0fefe0000000000000000000000001818fefe00000000000000",
+        "00000000000000fefe0000000000000000000000000000fefe00000000000000",
+        "00000000000000fefe0000000000000000000000000000fefe00000000000000",
+        "00000000000000f0f00000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    2: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "000000000062daf4dd460000000000000000000015dcf6f6fbe2000000000000",
+        "000000003adfd633fcfc0000000000000000000028705566faf7000000000000",
+        "00000000000023e8f6a500000000000000000000000cd5f9e015000000000000",
+        "0000000001b1f5e537000000000000000000000062fdfef5ecb4000000000000",
+        "0000000061f8fcefecb400000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    3: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "000000000aaceaf3dc4b000000000000000000007be7f4f4fbe9000000000000",
+        "000000007fbb7756fcfb000000000000000000001117a5fcfee4000000000000",
+        "000000000000a3fcfdba0000000000000000000093950451faf8000000000000",
+        "00000000d8e5573ffcfb00000000000000000000adf1f4f2f5cf000000000000",
+        "000000001ec7efeec62800000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    4: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "000000000000004af9f70000000000000000000000000dd9ffff000000000000",
+        "0000000000009af0fffe00000000000000000000003ce6e9fefe000000000000",
+        "0000000007d6f3b7fefe000000000000000000005ff9fdf1ffffa20000000000",
+        "000000005ae4f5efffffa200000000000000000000000000fefe000000000000",
+        "0000000000000000f0f000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    5: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000045e7f7efe1840000000000000000000089f6faefe184000000000000",
+        "00000000a8db9700000000000000000000000000c3eeefedbd23000000000000",
+        "00000000cdf4f2f3f4c7000000000000000000009cc66d54fcfa000000000000",
+        "00000000b3cb513cfbfa00000000000000000000b5f3f5f1f3c7000000000000",
+        "0000000025cdf0edc22300000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    6: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "000000000293e7f2ca22000000000000000000006be1f3f6f4b9000000000000",
+        "00000000ddf19655e2d300000000000000000000fafde1ecda87000000000000",
+        "00000000feffe8f2f3c500000000000000000000fdfe5555fcfa000000000000",
+        "00000000f0f44343fbfa00000000000000000000a1eaf1f2f4c5000000000000",
+        "0000000016baeceec42300000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    7: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "00000000a8eaeff1fbec00000000000000000000a8eaeff6fef6000000000000",
+        "00000000000001e2f28d0000000000000000000000004ff2ee16000000000000",
+        "000000000000d4f0a900000000000000000000000037f0ef2700000000000000",
+        "0000000000bff0c400000000000000000000000024f0f13e0000000000000000",
+        "0000000024cfc700000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    8: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000043d5f1f0d03900000000000000000000e8fbf2f2f8df000000000000",
+        "00000000f9fb4e52fcfa00000000000000000000d7fefefefeea000000000000",
+        "00000000cefefefefebb00000000000000000000fbfc5457faf8000000000000",
+        "00000000fbfc3f3efcfb00000000000000000000d1f7f4f3f7d6000000000000",
+        "000000002fccf0f0cc3000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
+    9: (
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000",
+        "0000000021c2eeecbb1700000000000000000000c4f3f2f1eaa0000000000000",
+        "00000000fafb4545f4f000000000000000000000fafb5356fefd000000000000",
+        "00000000c6f3f1e7fefe000000000000000000008bdbece1fdfa000000000000",
+        "00000000d5e35497f1dd00000000000000000000b9f4f6f4e16c000000000000",
+        "0000000024ccf2e7940200000000000000000000000000000000000000000000",
+        "0000000000000000000000000000000000000000000000000000000000000000"),
 }
 
 
@@ -43,25 +127,32 @@ def moving_digit_captions(n: int, seed: int = 0) -> list[str]:
     """n captions "digit D is MOTION." drawn from a seeded numpy generator."""
     rng = np.random.default_rng(seed)
     return [f"digit {int(rng.integers(0, 10))} is "
-            f"{_MOTIONS[int(rng.integers(0, len(_MOTIONS)))]}." for _ in range(n)]
+            f"{MOTION_CLASSES[int(rng.integers(0, len(MOTION_CLASSES)))]}." for _ in range(n)]
+
+
+def _canvas(d: int) -> np.ndarray:
+    return np.frombuffer(bytes.fromhex("".join(_CANVASES[d])), np.uint8).reshape(16, 16)
+
+
+def nearest_index(size: int, n: int = 16) -> np.ndarray:
+    """The source pixel of each of `size` output pixels when PIL's
+    Image.resize(..., NEAREST) maps n pixels to `size`: the sample position
+    starts at half a step and grows by one step of n / size in float64 (the
+    additions' rounding included), truncated (ImagingScaleAffine)."""
+    step = n / size
+    pos = step * 0.5
+    out = np.empty(size, np.int64)
+    for i in range(size):
+        out[i] = int(pos)
+        pos += step
+    return out
 
 
 def _glyph_digits(size: int = 28):
-    """Digits 0-9 as (size, size) uint8 glyphs: the 5x7 bitmap drawn at 2x on
-    a 16x16 canvas at offset taps (0/1 in x and y) for a bold stroke, then
-    resized nearest to `size`, as the JAX package draws PIL's font."""
-    glyphs = {}
-    for d, rows in _FONT.items():
-        bitmap = np.array([[c == "1" for c in r] for r in rows], np.uint8)
-        big = np.kron(bitmap, np.ones((2, 2), np.uint8)) * 255       # (14, 10)
-        canvas = np.zeros((16, 16), np.uint8)
-        for dx in (0, 1):
-            for dy in (0, 1):
-                y, x = 1 + dy, 3 + dx
-                canvas[y:y + 14, x:x + 10] |= big
-        idx = (np.arange(size) * 16) // size
-        glyphs[d] = [canvas[idx][:, idx]]
-    return glyphs
+    """Digits 0-9 as [(size, size) uint8 glyph], the JAX package's glyphs:
+    its 16x16 canvases resized to `size` with PIL's nearest mapping."""
+    idx = nearest_index(size)
+    return {d: [np.ascontiguousarray(_canvas(d)[idx][:, idx])] for d in _CANVASES}
 
 
 def _mnist_digits(mnist_path: str, per_class: int = 50):

@@ -77,6 +77,16 @@ def encode_caption(vocab: Vocab, caption: str) -> np.ndarray:
     return np.asarray(toks, dtype=np.int32)
 
 
+def pad_captions(captions, max_len: int | None = None):
+    """Token arrays -> (tokens (N, L) int64, lengths (N,) int64): each cut to
+    max_len and zero-padded to L = max_len, or to the longest without it."""
+    caps = [np.asarray(c)[:max_len] for c in captions]
+    toks = np.zeros((len(caps), max_len or max(len(c) for c in caps)), np.int64)
+    for i, c in enumerate(caps):
+        toks[i, :len(c)] = c
+    return toks, np.asarray([len(c) for c in caps], np.int64)
+
+
 _VOCAB_MODULES = ("txt2vid.data", "txt2vid_tpu.data")
 
 

@@ -22,8 +22,15 @@ with both terms, and so are their parameter gradients.
 
 import torch
 
+from txt2vid_tpu_torch.config import create_object
+from txt2vid_tpu_torch.convert import (jax_to_torch_discriminator, jax_to_torch_generator,
+                                       load_encoder_vars, torch_to_jax_discriminator,
+                                       torch_to_jax_encoder, torch_to_jax_generator)
+from txt2vid_tpu_torch.data import load_pickle
+from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
 from txt2vid_tpu_torch.gan.losses import multiscale_gradient_penalty
 from txt2vid_tpu_torch.ops.attention import no_kernel
+from txt2vid_tpu_torch.utils.checkpoint import restore_state
 
 
 class CondGan:
@@ -163,3 +170,54 @@ class CondGan:
                                        for f, rr in zip(fake_cc, r)]).mean()
             losses.append((loss_cond + loss_uncond) / 2.0)
         return self.weighted_sum(losses)
+
+
+def load_checkpoint_gan(weights, G, D, sent=None, vocab_path=None,
+                        frame_sizes=(8, 16, 32, 64), num_frames=16, num_channels=3,
+                        bf16: bool = False, ema: bool = False):
+    """(CondGan, vocab) from a training checkpoint (the whole train state,
+    flax msgpack) and the specs it was trained with: G, the list D and the
+    caption encoder `sent` (built when a vocabulary is given), on the CPU.
+    The generator, its BatchNorm statistics, the discriminators and the
+    encoder come from the file; with `ema` the generator takes the
+    parameters of the `<weights>.ema` sibling. frame_sizes, num_frames and
+    num_channels describe the training batch and must agree with the
+    generator. `bf16` computes the generator in bfloat16 from the float32
+    checkpoint."""
+    vocab = load_pickle(vocab_path) if vocab_path else None
+    txt, cond_dim = None, 0
+    if vocab is not None:
+        txt = create_object(sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
+                            vocab_size=len(vocab))
+        cond_dim = txt.encoding_size
+    gen = create_object(G, cond_dim=cond_dim, **({"dtype": torch.bfloat16} if bf16 else {}))
+    discrims = [create_object(d, cond_dim=cond_dim) for d in D]
+    size = gen.fm_w * 8 * 2 ** (gen.num_blocks - 1)
+    rendered = (gen.num_frames, size, gen.render_base.conv.out_channels)
+    if rendered != (num_frames, frame_sizes[-1], num_channels):
+        raise ValueError(f"the generator renders (frames, size, channels) {rendered}, "
+                         f"not {(num_frames, frame_sizes[-1], num_channels)}")
+
+    g_params, g_stats = torch_to_jax_generator(gen.state_dict())
+    template = {"g_vars": {"batch_stats": g_stats, "params": g_params},
+                "d_vars": {str(k): {"params": torch_to_jax_discriminator(d.state_dict())}
+                           for k, d in enumerate(discrims)}}
+    if txt is not None:
+        template["txt_vars"] = {"params": torch_to_jax_encoder(txt.state_dict(),
+                                                               decoder=False)}
+    state = restore_state(template, weights)
+    with torch.no_grad():
+        gen.load_state_dict(jax_to_torch_generator(state["g_vars"]["params"],
+                                                   state["g_vars"]["batch_stats"]))
+        for k, d in enumerate(discrims):
+            d.load_state_dict(jax_to_torch_discriminator(state["d_vars"][str(k)]["params"]))
+        if txt is not None:
+            load_encoder_vars(txt, state["txt_vars"])
+        if ema:
+            params = load_ema(weights, init_ema(gen))
+            if params is None:
+                raise FileNotFoundError(f"ema=True: no sibling {weights}.ema (a run "
+                                        "trained without --g_ema?)")
+            for n, p in gen.named_parameters():
+                p.copy_(params[n])
+    return CondGan(gen, txt, discrims=discrims), vocab

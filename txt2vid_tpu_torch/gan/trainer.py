@@ -146,14 +146,23 @@ def save_sentences(captions, path: str, vocab=None):
             f.write(vocab.to_words(cap) + "\n")
 
 
+def draw_z(batch_size: int, latent_size: int, generator: torch.Generator):
+    """The z of one sample() call: N(0, 1) drawn on the host from `generator`.
+    sample() is how the sampling CLIs (sample, eval.run, eval.alignment) draw
+    z, so replacing this function gives them other draws (the JAX package's
+    z, which jax.random draws, in the parity tests)."""
+    return torch.randn(batch_size, latent_size, generator=generator)
+
+
 @torch.no_grad()
 def sample(gen, batch_size: int, generator: torch.Generator, cond=None,
            latent_size: int | None = None):
     """Eval-mode generation: running-statistics BatchNorm, no subsampling, the
-    final scale only. z is drawn on the host from `generator`. Returns a list
-    of scales as numpy arrays; the generator's train/eval mode is restored."""
+    final scale only. z comes from draw_z. Returns a list of scales as numpy
+    arrays; the generator's train/eval mode is restored."""
     device = next(gen.parameters()).device
-    z = torch.randn(batch_size, latent_size or gen.latent_size, generator=generator)
+    z = torch.as_tensor(draw_z(batch_size, latent_size or gen.latent_size, generator),
+                        dtype=torch.float32)
     was_training = gen.training
     gen.eval()
     try:

@@ -24,8 +24,9 @@ vocabulary of the synthetic moving-digit captions. `--bench N` times N videos
 and prints one JSON line. `--bf16` builds the generator with dtype bf16
 (float32 parameters cast at each use, bf16 activations and attention, the
 caption encoder float32), as txt2vid_tpu/serve.py:121-122 does; the uint8
-quantization runs on a float32 copy of the video. The video formats (gif,
-avi, mp4, webm) raise NotImplementedError naming themselves.
+quantization runs on a float32 copy of the video. `--format gif|avi|mp4|webm`
+writes one clip per sample (utils/video.py: .gif without any library, the
+others through OpenCV where it is installed).
 """
 
 import argparse
@@ -36,18 +37,14 @@ import numpy as np
 import torch
 
 from txt2vid_tpu_torch import resolve_device
-from txt2vid_tpu_torch.config import create_object
-from txt2vid_tpu_torch.convert import (jax_to_torch_generator, load_encoder_vars,
-                                       torch_to_jax_discriminator, torch_to_jax_encoder,
-                                       torch_to_jax_generator)
-from txt2vid_tpu_torch.data import build_vocab, encode_caption, load_pickle
+from txt2vid_tpu_torch.data import build_vocab, encode_caption, load_pickle, pad_captions
 from txt2vid_tpu_torch.data.synthetic import moving_digit_captions
-from txt2vid_tpu_torch.gan.cond_gan import CondGan
+from txt2vid_tpu_torch.gan.cond_gan import CondGan, load_checkpoint_gan
 from txt2vid_tpu_torch.models import tganv2_cond
 from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
 from txt2vid_tpu_torch.utils import ensure_exists, status
-from txt2vid_tpu_torch.utils.checkpoint import restore_state
+from txt2vid_tpu_torch.utils.video import save_video_batch
 
 VIDEO_FORMATS = ("gif", "avi", "mp4", "webm")
 
@@ -75,13 +72,8 @@ class GeneratorService:
         self._has_cond = gan.cond_encoder is not None and vocab is not None
 
     def _tokenize(self, sentences):
-        toks = np.zeros((len(sentences), self.max_caption_len), np.int64)
-        lens = np.zeros((len(sentences),), np.int64)
-        for i, s in enumerate(sentences):
-            c = encode_caption(self.vocab, s)[:self.max_caption_len]
-            toks[i, :len(c)] = c
-            lens[i] = len(c)
-        return toks, lens
+        return pad_captions([encode_caption(self.vocab, s) for s in sentences],
+                            self.max_caption_len)
 
     def _draw_z(self, seed: int, chunk: int):
         """The chunk's z, from a generator seeded by (seed, chunk)."""
@@ -153,51 +145,11 @@ class GeneratorService:
                         frame_sizes=(8, 16, 32, 64), num_frames=16, num_channels=3,
                         batch_size: int = 8, max_caption_len: int = 16, bf16: bool = False,
                         ema: bool = False, device=None):
-        """A training checkpoint (the whole train state, flax msgpack) from the
-        specs it was trained with: G, the list D and the caption encoder `sent`
-        (built when a vocabulary is given). The generator, its BatchNorm
-        statistics and the encoder come from the file, the discriminators'
-        parameters are checked against D's shapes as the JAX package's
-        template does; with `ema` the generator takes the parameters of the
-        `<weights>.ema` sibling. frame_sizes, num_frames and num_channels
-        describe the training batch and must agree with the generator. `bf16`
-        computes the generator in bfloat16 from the float32 checkpoint."""
-        from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
-        device = resolve_device(device)
-        vocab = load_pickle(vocab_path) if vocab_path else None
-        txt, cond_dim = None, 0
-        if vocab is not None:
-            txt = create_object(sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
-                                vocab_size=len(vocab))
-            cond_dim = txt.encoding_size
-        gen = create_object(G, cond_dim=cond_dim, **({"dtype": torch.bfloat16} if bf16 else {}))
-        discrims = [create_object(d, cond_dim=cond_dim) for d in D]
-        size = gen.fm_w * 8 * 2 ** (gen.num_blocks - 1)
-        rendered = (gen.num_frames, size, gen.render_base.conv.out_channels)
-        if rendered != (num_frames, frame_sizes[-1], num_channels):
-            raise ValueError(f"the generator renders (frames, size, channels) {rendered}, "
-                             f"not {(num_frames, frame_sizes[-1], num_channels)}")
-
-        g_params, g_stats = torch_to_jax_generator(gen.state_dict())
-        template = {"g_vars": {"batch_stats": g_stats, "params": g_params},
-                    "d_vars": {str(k): {"params": torch_to_jax_discriminator(d.state_dict())}
-                               for k, d in enumerate(discrims)}}
-        if txt is not None:
-            template["txt_vars"] = {"params": torch_to_jax_encoder(txt.state_dict())}
-        state = restore_state(template, weights)
-        with torch.no_grad():
-            gen.load_state_dict(jax_to_torch_generator(state["g_vars"]["params"],
-                                                       state["g_vars"]["batch_stats"]))
-            if txt is not None:
-                load_encoder_vars(txt, state["txt_vars"])
-            if ema:
-                params = load_ema(weights, init_ema(gen))
-                if params is None:
-                    raise FileNotFoundError(f"ema=True: no sibling {weights}.ema (a run "
-                                            "trained without --g_ema?)")
-                for n, p in gen.named_parameters():
-                    p.copy_(params[n])
-        return cls(CondGan(gen, txt), vocab=vocab, batch_size=batch_size,
+        """A training checkpoint (load_checkpoint_gan) served at batch_size."""
+        gan, vocab = load_checkpoint_gan(weights, G, D, sent=sent, vocab_path=vocab_path,
+                                         frame_sizes=frame_sizes, num_frames=num_frames,
+                                         num_channels=num_channels, bf16=bf16, ema=ema)
+        return cls(gan, vocab=vocab, batch_size=batch_size,
                    max_caption_len=max_caption_len, device=device)
 
 
@@ -208,9 +160,6 @@ def main(args):
     # semantics; cuDNN would take TF32 by default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.format in VIDEO_FORMATS:
-        raise NotImplementedError(f"--format {args.format} comes in a later slice of the "
-                                  "port (utils/video.py); --format png writes grids")
     if args.weights:
         if not (args.G and args.D):
             raise ValueError("--weights needs the --G and --D specs it was trained with")
@@ -254,9 +203,15 @@ def main(args):
     from txt2vid_tpu_torch.gan.trainer import save_frames
     out = svc.generate(sentences=sentences, num=args.num_samples, seed=args.seed)
     ensure_exists(args.out_samples)
-    for i, v in enumerate(out):
-        path = f"{args.out_samples}/serve_{i}.png"
-        save_frames(v[None], path)          # uint8 passes through to_grid
+    if args.format == "png":
+        paths = []
+        for i, v in enumerate(out):
+            paths.append(f"{args.out_samples}/serve_{i}.png")
+            save_frames(v[None], paths[-1])          # uint8 passes through to_grid
+    else:
+        paths = save_video_batch(out, f"{args.out_samples}/serve_{{i}}.{args.format}",
+                                 fps=args.fps)
+    for path in paths:
         status(f"wrote {path}")
     return out
 
@@ -287,8 +242,8 @@ def build_parser():
     p.add_argument("--bench", type=int, default=0,
                    help="measure throughput over N videos, print one JSON line")
     p.add_argument("--format", default="png", choices=["png", *VIDEO_FORMATS],
-                   help="png = one grid image per sample; the video formats are not in "
-                        "the port yet (raise)")
+                   help="png = one grid image per sample; video formats = one playable "
+                        "clip per sample (utils/video.py)")
     p.add_argument("--fps", type=int, default=8, help="frame rate of the video formats")
     p.add_argument("--out_samples", default="out_samples")
     p.add_argument("--seed", type=int, default=0)
