@@ -940,11 +940,11 @@ def leaf_scales(moments):
     return {k: max(float(v.abs().max()), 1e-2 * top) for k, v in moments.items()}
 
 
-def phase_train(seed):
-    """The bench's train step on the card, then the bench's float32 timing
-    and profile of it (phase bf16 prints them beside the bf16 stack's).
-    Returns the launch counts of its TRAIN_STEPS steps and the timing."""
-    step, batch = bench.build(seed, bench.BATCH, "cuda")
+def kernel_vs_plain_step(step, batch, phase):
+    """phase train's rule: every attention gamma set to 1, one step from a
+    copied state with the kernels and one under no_kernel() must agree
+    (losses 1e-4 relative, Adam first moments 1e-3 of the leaf scale).
+    Returns the attention blocks and the state before the step."""
     gan = step.gan
     modules = {"G": gan.gen, "D": gan.discrims[0]}
     opts = {"G": step.opt_g, "D": step.opt_d}
@@ -967,7 +967,7 @@ def phase_train(seed):
         return {k: {n: opts[k].state[p]["exp_avg"].clone()
                     for n, p in modules[k].named_parameters()} for k in modules}
 
-    draws = step.draw(bench.BATCH, "cuda")
+    draws = step.draw(batch["video"].shape[0], "cuda")
     m_kernel = {k: float(v) for k, v in step(batch, draws).items()}
     mom_kernel = moments()
     restore()
@@ -982,10 +982,20 @@ def phase_train(seed):
         scales = leaf_scales(mom_plain[side])
         for n, ref in mom_plain[side].items():
             worst = max(worst, float((ref - mom_kernel[side][n]).abs().max()) / scales[n])
-    print(f"phase train: kernels vs no_kernel(), one step from one state: {m_kernel} vs "
+    print(f"phase {phase}: kernels vs no_kernel(), one step from one state: {m_kernel} vs "
           f"{m_plain}; losses rel diff {loss_err:.3g} (tol 1e-4), Adam first moments "
           f"max|diff| / leaf scale {worst:.3g} (tol 1e-3)")
-    check(loss_err <= 1e-4 and worst <= 1e-3, "the train step disagrees with no_kernel()")
+    check(loss_err <= 1e-4 and worst <= 1e-3, f"the {phase} step disagrees with no_kernel()")
+    return attns, start
+
+
+def phase_train(seed):
+    """The bench's train step on the card, then the bench's float32 timing
+    and profile of it (phase bf16 prints them beside the bf16 stack's).
+    Returns the launch counts of its TRAIN_STEPS steps and the timing."""
+    step, batch = bench.build(seed, bench.BATCH, "cuda")
+    modules = {"G": step.gan.gen, "D": step.gan.discrims[0]}
+    attns, start = kernel_vs_plain_step(step, batch, "train")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1014,7 +1024,7 @@ def phase_train(seed):
     print(f"phase train: batch {bench.BATCH}, {TRAIN_STEPS} steps in {dt:.3f} s, "
           f"{TRAIN_STEPS / dt:.3f} steps/s (each ended by a host fetch), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {totals}")
-    del start, mom_kernel, mom_plain     # the bench's peak holds the step alone
+    del start                           # the bench's peak holds the step alone
     sec, _, peak = bench.measure(step, batch)
     prof = bench.profile(step, batch, BENCH_PROFILE_STEPS)
     f32 = {"dtype": "f32", "ms_per_step": 1e3 * sec, "peak_memory_bytes": peak}
@@ -1105,7 +1115,8 @@ class StateSnapshot:
 
     def __init__(self, step):
         gan = step.gan
-        self.modules = [gan.gen, *gan.discrims, gan.cond_encoder]
+        self.modules = [m for m in (gan.gen, *gan.discrims, gan.cond_encoder,
+                                    gan.sample_mapping) if m is not None]
         self.tensors = [{n: t.detach().clone() for n, t in m.state_dict().items()}
                         for m in self.modules]
         self.opts = [{p: {k: v.clone() for k, v in st.items()} for p, st in opt.state.items()}
@@ -2056,6 +2067,367 @@ def phase_bf16(seed, cond_root, f32_cli_ms, f32_serve_ms, f32_bench):
     return {"cli": cli, "cond128": cond["launches"], "serve": serve_launches}
 
 
+# phase families: the TCWYT, TGAN and image-GAN families through the training
+# CLI at the full widths of scripts/run.sh and scripts/run_tgan.sh, and
+# TGANv2's no_lstm generator (tganv2.py:97-107) in phase train's step
+FAMILY_FRAMES, FAMILY_TIMED_STEPS = 16, 5
+RUN_SH_BATCH, RUN_SH_CLIPS, RUN_SH_EPOCHS = 48, 96, 2       # 4 steps, then 2 resumed
+IMG_BATCH, IMG_CLIPS, IMG_EPOCHS = 32, 64, 2                # 4 steps on 64-px clips
+TGAN_BATCH, TGAN_CLIPS = 16, 32                             # 2 steps
+CIFAR_IMAGES = 320                                          # one epoch: 10 steps
+# no_lstm swaps the ConvLSTM for TGAN's seed generator and keeps every
+# attention block, so its step launches what the 64-px flagship's does
+NO_LSTM_LAUNCHES = train_launches(4)
+NO_LSTM_STEPS = 2
+
+
+def family_argv(root, name, seed, *args):
+    out = root / name
+    return [*args, "--seed", str(seed), "--log_period", "1", "--workers", "2",
+            "--out", str(out), "--out_samples", str(out / "samples")]
+
+
+def run_sh_argv(root, seed, *extra):
+    """scripts/run.sh's flags verbatim but for the data paths and --epochs."""
+    data = json.dumps({"class": "txt2vid_tpu.data.my_dataset",
+                       "args": {"data": str(root / "v48"), "num_frames": FAMILY_FRAMES}})
+    return family_argv(
+        root, "tcwyt", seed, "--G", "txt2vid_tpu.models.tcwyt.Gen",
+        "--D", "txt2vid_tpu.models.tcwyt.VideoDiscrim", "txt2vid_tpu.models.tcwyt.FrameDiscrim",
+        "txt2vid_tpu.models.tcwyt.MotionDiscrim", "--D_names", "video", "frame", "motion",
+        "--M", "txt2vid_tpu.models.tcwyt.FrameMap", "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+        "--data", data, "--anno", str(root / "sent48.pickle"),
+        "--vocab", str(root / "vocab.pickle"), "--frame_sizes", "48", "--num_channels", "3",
+        "--D_loss", "txt2vid_tpu.gan.losses.RaLSGANLoss", "--G_lr", "0.0001",
+        "--D_lr", "0.0001", "--batch_size", str(RUN_SH_BATCH), "--save_example_period", "4",
+        "--sample_batch_size", "8", *extra)
+
+
+def run_tgan_argv(root, seed, name, data, *extra):
+    """scripts/run_tgan.sh's flags verbatim but for the data."""
+    return family_argv(
+        root, name, seed, "--G", "txt2vid_tpu.models.img.Gen",
+        "--D", "txt2vid_tpu.models.img.Discrim", "--dont_use_sent", "--img_model",
+        "--data", data, "--frame_sizes", "64", "--num_channels", "3",
+        "--D_loss", "txt2vid_tpu.gan.losses.WassersteinGanLoss", "--discrim_steps", "5",
+        "--gp_lambda", "10", "--batch_size", str(IMG_BATCH), *extra)
+
+
+def family_cli(name, argv):
+    """`train.gan.main` in-process on argv, TF32 on before it and checked off
+    after; every step finite and launching no attention kernel (these
+    families have none). Returns (recorder, the step's state as built, the
+    seconds, the peak memory)."""
+    built = []
+    build = train_gan.build_train_step
+
+    def capturing(*a, **k):
+        step = build(*a, **k)
+        built.append(StateSnapshot(step))
+        return step
+
+    train_gan.build_train_step = capturing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tf32_on()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with StepRecorder() as rec:
+            train_gan.main(train_gan.build_parser().parse_args(argv))
+    finally:
+        train_gan.build_train_step = build
+    torch.cuda.synchronize()
+    seconds, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    check_tf32_off(f"families {name}")
+    for r in rec.steps:
+        print(f"phase families: {name} step {r['iteration']}: {r['ms']:.2f} ms, "
+              f"{r['metrics']}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"families {name} step {r['iteration']}: non-finite {r['metrics']}")
+    check(not any(counts().values()), f"families {name}: attention launched {counts()}")
+    print(f"phase families: {name}: {len(rec.steps)} steps through the CLI in {seconds:.2f} "
+          f"s, peak memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    return rec, built[0], seconds, peak
+
+
+def moved_and_frozen(step, start, name):
+    """Every G and D parameter with a nonzero gradient has moved; M's
+    parameters and statistics and every D's statistics are as they were,
+    byte for byte."""
+    gan = step.gan
+    frozen = 0
+    for m, saved in zip(start.modules, start.tensors):
+        if m is gan.cond_encoder:
+            continue
+        is_m = m is gan.sample_mapping
+        for n, p in m.named_parameters():
+            same = torch.equal(p.detach(), saved[n])
+            if is_m:
+                check(same, f"families {name}: M's {n} moved")
+                frozen += 1
+            elif p.grad is not None and bool(p.grad.any()):
+                check(not same, f"families {name}: {n} has a gradient and did not move")
+        for n, b in m.named_buffers():
+            if "running" in n and m is not gan.gen:
+                check(torch.equal(b, saved[n]), f"families {name}: the statistic {n} moved")
+                frozen += 1
+    print(f"phase families: {name}: every G and D parameter with a gradient moved; "
+          f"{frozen} tensors of M and of the discriminators' statistics unchanged")
+
+
+def family_float64_step(step, batch, name):
+    """One float32 step on the card against the same step in float64, from
+    one copied state and one set of draws: losses within 1e-4 relative, each
+    Adam first moment leaf within 1e-3 of its leaf scale (max|moment|
+    floored at 1e-2 of its module's largest), or, where the worst leaf is
+    further, no further than the same float32 step on the host's CPU (the
+    limit the same comparison measures there; BatchNorm at batch statistics
+    after each convolution cancels, so float32 strays at full width)."""
+    gan = step.gan
+    start = StateSnapshot(step)
+    x = batch["video"]
+    draws = step.draw(x.shape[0], x.device)
+    sides = {"G": (gan.gen, step.opt_g),
+             **{f"D{k}": (d, step.opt_d) for k, d in enumerate(gan.discrims)}}
+    mods = [m for m in (gan.gen, *gan.discrims, gan.cond_encoder, gan.sample_mapping)
+            if m is not None]
+
+    def run(dtype, device="cuda"):
+        for m in mods:
+            m.to(device=device, dtype=dtype)
+        start.restore(step)
+        for opt in (step.opt_g, step.opt_d):
+            for st in opt.state.values():
+                st.update({k: v.to(device) for k, v in st.items() if k != "step"})
+        b = {k: v if k == "lengths" else v.to(device) for k, v in batch.items()}
+        if b["video"].dtype == torch.uint8:
+            b["video"] = b["video"].to(dtype) / 127.5 - 1.0
+        b["video"] = b["video"].to(dtype)
+        d = dataclasses.replace(draws, z=draws.z.to(device, dtype),
+                                perms=[p.to(device) for p in draws.perms])
+        metrics = {k: float(v) for k, v in step(b, d).items()}
+        moments = {side: {n: opt.state[p]["exp_avg"].double().cpu()
+                          for n, p in m.named_parameters()} for side, (m, opt) in sides.items()}
+        return metrics, moments
+
+    def worst(mom, ref):
+        w, where = 0.0, None
+        for side in sides:
+            scales = leaf_scales(ref[side])
+            for n, r in ref[side].items():
+                err = float((r - mom[side][n]).abs().max()) / scales[n]
+                if err > w:
+                    w, where = err, f"{side} {n}"
+        return w, where
+
+    m64, mom64 = run(torch.float64)
+    m32, mom32 = run(torch.float32)
+    loss_err = max(abs(m32[k] - m64[k]) / abs(m64[k]) for k in ("loss_d", "loss_g"))
+    card, where = worst(mom32, mom64)
+    print(f"phase families: {name}: a float32 step vs the float64 step from one state: "
+          f"{m32} vs {m64}; losses rel diff {loss_err:.3g} (tol 1e-4), Adam first moments "
+          f"max|diff| / leaf scale {card:.3g} at {where} (tol 1e-3)")
+    limit = 1e-3
+    if card > limit:
+        t0 = time.perf_counter()
+        _, mom_cpu = run(torch.float32, "cpu")
+        limit, cpu_where = worst(mom_cpu, mom64)
+        print(f"phase families: {name}: the same float32 step on the CPU ({torch.get_num_threads()} "
+              f"threads, {time.perf_counter() - t0:.1f} s) vs the float64 step: {limit:.3g} at "
+              f"{cpu_where}, the card's limit")
+    for m in mods:
+        m.to(device="cuda", dtype=torch.float32)
+    start.restore(step)
+    check(loss_err <= 1e-4 and card <= limit, f"families {name}: the float32 step strays "
+          "from the float64 one")
+
+
+def timed_family_steps(step, batch, name):
+    """FAMILY_TIMED_STEPS steps of `step` alone on one batch; the median ms on
+    the host clock between device synchronizations after 2 of warm-up."""
+    times = []
+    for i in range(FAMILY_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch)["loss_d"])
+        times.append(1e3 * (time.perf_counter() - t0))
+        check(math.isfinite(loss), f"families {name}: timed step {i}: loss_d {loss}")
+    ms = statistics.median(times[2:])
+    print(f"phase families: {name}: {FAMILY_TIMED_STEPS} steps alone {times} ms; median "
+          f"after 2 of warm-up {ms:.2f} ms")
+    return ms
+
+
+def families_data(root, seed):
+    """Synthetic 16-frame clips at 48 px (run.sh) and 64 px (the image GAN and
+    TGAN), their captions and one vocabulary."""
+    t0 = time.perf_counter()
+    caps = []
+    for size, n in ((48, RUN_SH_CLIPS), (64, IMG_CLIPS)):
+        sents = generate_examples(root / f"v{size}", root / f"sent{size}.pickle",
+                                  num_examples=n, frame_size=(size, size),
+                                  num_frames=FAMILY_FRAMES, seed=seed, num_channels=3)
+        caps += [c for v in sents.values() for c in v]
+        if size == 64:          # TGAN's two steps: the first TGAN_CLIPS clips
+            with open(root / "sent64_tgan.pickle", "wb") as f:
+                pickle.dump({k: sents[k] for k in list(sents)[:TGAN_CLIPS]}, f)
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab(caps), f)
+    cifar = root / "cifar" / "cifar-10-batches-py"
+    cifar.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    with open(cifar / "data_batch_1", "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (CIFAR_IMAGES, 3072), dtype=np.uint8),
+                     b"labels": rng.integers(0, 10, CIFAR_IMAGES).tolist()}, f)
+    print(f"phase families: {RUN_SH_CLIPS} clips of 16x48x48x3, {IMG_CLIPS} of 16x64x64x3, "
+          f"{CIFAR_IMAGES} CIFAR-format images in {time.perf_counter() - t0:.2f} s")
+
+
+def phase_families(seed):
+    """Returns the no_lstm step's launch counts and the configurations'
+    ms per step."""
+    root = smoke_dir("families_smoke_")
+    try:
+        families_data(root, seed)
+        return _phase_families(root, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_families(root, seed):
+    ms = {}
+    # TCWYT at run.sh's full width: 4 steps, then --resume for 2
+    rec, start, _, _ = family_cli("tcwyt", run_sh_argv(root, seed, "--epochs",
+                                                         str(RUN_SH_EPOCHS)))
+    n = RUN_SH_EPOCHS * RUN_SH_CLIPS // RUN_SH_BATCH
+    check(len(rec.steps) == n, f"families tcwyt: {len(rec.steps)} steps, {n} expected")
+    check(rec.step.gan.discrim_names == ["video", "frame", "motion"],
+          f"families tcwyt: --D_names gave {rec.step.gan.discrim_names}")
+    moved_and_frozen(rec.step, start, "tcwyt")
+    resumed, _, _, _ = family_cli("tcwyt --resume",
+                                  run_sh_argv(root, seed, "--epochs", "1", "--resume"))
+    its = [r["iteration"] for r in resumed.steps]
+    check(its == [n, n + 1], f"families tcwyt: --resume ran counters {its}")
+    out = root / "tcwyt"
+    latest = checkpoint.latest_checkpoint(out)
+    check(Path(latest).name.startswith(f"iter_{n + 2}_"), f"the last checkpoint is {latest}")
+    step, batch = resumed.step, resumed.batch
+    mem = checkpoint.to_host(torch_state_to_jax(step))
+    check(mem["m_vars"] is not None and all("batch_stats" in mem["d_vars"][k]
+                                            for k in mem["d_vars"]),
+          "families tcwyt: the checkpoint lacks m_vars or the discriminators' statistics")
+    n_leaves = same_tree(mem, checkpoint.restore_state(mem, latest), "tcwyt checkpoint")
+    nbytes = Path(latest).stat().st_size
+    print(f"phase families: tcwyt: {Path(latest).name} reads back bit for bit ({n_leaves} "
+          f"leaves, m_vars and the discriminators' statistics among them), {nbytes} bytes")
+    family_float64_step(step, batch, "tcwyt")
+    torch.cuda.reset_peak_memory_stats()
+    ms["tcwyt"] = timed_family_steps(step, batch, "tcwyt")
+    print(f"phase families: tcwyt: peak memory of the timed steps "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    del rec, start, resumed, step, batch
+    spec = ["--weights", latest, "--G", "txt2vid_tpu.models.tcwyt.Gen",
+            "--D", "txt2vid_tpu.models.tcwyt.VideoDiscrim",
+            "txt2vid_tpu.models.tcwyt.FrameDiscrim", "txt2vid_tpu.models.tcwyt.MotionDiscrim",
+            "--M", "txt2vid_tpu.models.tcwyt.FrameMap", "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+            "--vocab", str(root / "vocab.pickle"), "--frame_sizes", "48",
+            "--num_frames", str(FAMILY_FRAMES), "--num_channels", "3"]
+    videos, dt = run_eval_cli(sample_mod, spec + [
+        "--format", "gif", "--sentences", *moving_digit_captions(4, seed),
+        "--out_samples", str(root / "samples")], "sample --M")
+    gifs = sorted((root / "samples").glob("sample_48x48_*.gif"))
+    check(videos.shape == (4, 16, 48, 48, 3) and np.isfinite(videos).all() and len(gifs) == 4
+          and all(g.read_bytes()[:6] == b"GIF89a" for g in gifs),
+          f"families sample --M: {videos.shape}, {len(gifs)} GIFs")
+    print(f"phase families: tcwyt: sample --M --format gif: 4 GIFs in {dt:.2f} s")
+    report, dt = run_eval_cli(run_mod, spec + [
+        "--data", str(root / "v48"), "--anno", str(root / "sent48.pickle"),
+        "--num", str(RUN_SH_CLIPS), "--batch_size", str(RUN_SH_BATCH), "--no_discrim_fid"],
+        "eval.run --M")
+    finite_report(report, f"families eval.run --M ({dt:.2f} s)")
+    report, dt = run_eval_cli(alignment_mod, spec + [
+        "--k_per_class", "8", "--batch_size", "32", "--seed", "5"], "eval.alignment --M")
+    finite_report({k: v for k, v in report.items() if k != "confusion"},
+                  f"families eval.alignment --M ({dt:.2f} s)")
+
+    # the image GAN at run_tgan.sh's flags: 4 steps on the clips' first frames
+    data = json.dumps({"class": "txt2vid_tpu.data.my_dataset",
+                       "args": {"data": str(root / "v64"), "num_frames": FAMILY_FRAMES}})
+    rec, start, _, _ = family_cli("img", run_tgan_argv(
+        root, seed, "img", data, "--anno", str(root / "sent64.pickle"),
+        "--epochs", str(IMG_EPOCHS)))
+    n = IMG_EPOCHS * IMG_CLIPS // IMG_BATCH
+    check(len(rec.steps) == n and rec.batch["video"].shape == (IMG_BATCH, 64, 64, 3),
+          f"families img: {len(rec.steps)} steps on {tuple(rec.batch['video'].shape)}")
+    moved_and_frozen(rec.step, start, "img")
+    step, batch = rec.step, rec.batch
+    gan = step.gan
+    draws = step.draw(IMG_BATCH, "cuda")
+    with torch.no_grad():
+        fakes = gan.generate(draws.z, train=True)
+    real = batch["video"].float() / 127.5 - 1.0
+    gp = float(gan.gradient_penalty(0, draws.alphas[0], [real], fakes).detach())
+    check(math.isfinite(gp) and gp > 0, f"families img: the gradient penalty {gp}")
+    print(f"phase families: img: the critic's gradient penalty on a batch {gp:.4g}, "
+          f"{Path(checkpoint.latest_checkpoint(root / 'img')).stat().st_size} checkpoint bytes")
+    ms["img"] = timed_family_steps(step, batch, "img")
+    del rec, start, step, batch, gan, fakes
+    data = json.dumps({"class": "txt2vid_tpu.data.cifar10_dataset",
+                       "args": {"data": str(root / "cifar")}})
+    rec, _, _, _ = family_cli("img --data_is_imgs", run_tgan_argv(
+        root, seed, "cifar", data, "--data_is_imgs", "--epochs", "1"))
+    check(len(rec.steps) == CIFAR_IMAGES // IMG_BATCH
+          and rec.batch["video"].shape == (IMG_BATCH, 64, 64, 3),
+          f"families cifar: {len(rec.steps)} steps on {tuple(rec.batch['video'].shape)}")
+    del rec
+
+    # TGAN, conditional, 64 px, 16 frames: 2 steps
+    data = json.dumps({"class": "txt2vid_tpu.data.my_dataset",
+                       "args": {"data": str(root / "v64"), "num_frames": FAMILY_FRAMES}})
+    rec, start, _, _ = family_cli("tgan", family_argv(
+        root, "tgan", seed, "--G", "txt2vid_tpu.models.tgan.Gen",
+        "--D", "txt2vid_tpu.models.tgan.Discrim", "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+        "--data", data, "--anno", str(root / "sent64_tgan.pickle"),
+        "--vocab", str(root / "vocab.pickle"), "--frame_sizes", "64", "--num_channels", "3",
+        "--D_loss", "txt2vid_tpu.gan.losses.RSGANLoss", "--batch_size", str(TGAN_BATCH),
+        "--epochs", "1"))
+    check(len(rec.steps) == TGAN_CLIPS // TGAN_BATCH, f"families tgan: {len(rec.steps)} steps")
+    moved_and_frozen(rec.step, start, "tgan")
+    print(f"phase families: tgan: "
+          f"{Path(checkpoint.latest_checkpoint(root / 'tgan')).stat().st_size} checkpoint bytes")
+    ms["tgan"] = timed_family_steps(rec.step, rec.batch, "tgan")
+    del rec, start
+
+    # TGANv2 no_lstm: the 64-px flagship with TGAN's seed generator
+    step, batch = bench.build(seed, bench.BATCH, "cuda", no_lstm=True)
+    check(step.gan.gen.no_lstm and not hasattr(step.gan.gen, "clstm"), "no_lstm has a ConvLSTM")
+    attns, start = kernel_vs_plain_step(step, batch, "families no_lstm")
+    print(f"phase families: no_lstm: predicted launches per step {NO_LSTM_LAUNCHES} "
+          "(the flagship's: the same attention blocks)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for i in range(NO_LSTM_STEPS):
+        before = counts()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        launched = {k: v - before[k] for k, v in counts().items()}
+        print(f"phase families: no_lstm step {i}: {metrics}, launches {launched}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"no_lstm step {i}: {metrics}")
+        check(launched == NO_LSTM_LAUNCHES, f"no_lstm step {i}: launches {launched}, "
+              f"expected {NO_LSTM_LAUNCHES}")
+    totals = counts()
+    peak = torch.cuda.max_memory_allocated()
+    gen = step.gan.gen
+    check(not torch.equal(gen.frame_seed_gen.dc0.weight, start["G"]["frame_seed_gen.dc0.weight"]),
+          "no_lstm: the seed generator did not move")
+    ms["no_lstm"] = timed_family_steps(step, batch, "no_lstm")
+    print(f"phase families: no_lstm: batch {bench.BATCH}, peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB), launches {totals}")
+    print(f"phase families: ms per step (median after 2 warm-up steps): {json.dumps(ms)}")
+    return {"launches": totals, "ms": ms}
+
+
 # phase txt: the sentence-encoder pretraining at full width (scripts/run_sent.sh's
 # train.txt: Seq2Seq 256/256/4, batch 64, --max_len 32, lr 1e-4) on
 # TXT_CAPTIONS captions of the synthetic grammar, with --save_every 16
@@ -2387,6 +2759,7 @@ def main():
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
         shutil.rmtree(cond_root, ignore_errors=True)
+    families = timed("families", phase_families, args.seed)
     timed("txt", phase_txt, args.seed)
     for r in records + bf16_records:
         r["tc_instructions"] = tc[r["name"]]
@@ -2399,6 +2772,8 @@ def main():
         r["cli_launches"] = cli[r["name"]]
         r["cond128_launches"] = cond["launches"][r["name"]]
         r["cond128_launches_per_step"] = cond["per_step"][r["name"]]
+        r["no_lstm_launches"] = families["launches"][r["name"]]
+        r["no_lstm_launches_per_step"] = NO_LSTM_LAUNCHES[r["name"]]
     records[0]["cond128_serve_launches"] = cond["serve_launches"]
     # the evaluation CLIs' sampling and discriminator features (phase eval)
     records[0]["eval_launches"] = evaluation["launches"]

@@ -167,7 +167,7 @@ def test_nan_abort_exits_42_and_keeps_the_last_good_checkpoint(data, tmp_path, m
     ["--sgd"], ["--end2end"],
     ["--end2end_d_only"], ["--gen_steps", "2"], ["--sp", "2"], ["--fsdp", "2"],
     ["--multihost"], ["--device_data"], ["--steps_per_dispatch", "2"],
-    ["--M", "txt2vid_tpu.models.tcwyt.FrameMap"], ["--img_model"]])
+    ["--gen_steps", "3"], ["--steps_per_dispatch", "4"]])
 def test_unported_flags_raise_naming_themselves(data, tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gan.cli(argv(data, tmp_path, *flag))
@@ -246,7 +246,8 @@ def test_spec_names_resolve_to_the_port(spec, cls):
 def test_spec_args_carry_over():
     """use_pallas -> use_kernel, stem_impl dropped, init_method kept for
     init_from_seed, remat passed through to G and D; dtype "bfloat16" becomes
-    the modules' torch.bfloat16."""
+    the modules' torch.bfloat16. The families' specs carry over alike; a
+    component the port lacks raises naming it."""
     d = config.create_object({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
                               "args": {**D["args"], "use_pallas": False, "stem_impl": "conv",
                                        "remat": True}},
@@ -261,8 +262,12 @@ def test_spec_args_carry_over():
     with torch.no_grad():
         video = g.eval()(torch.randn(2, 16), torch.randn(2, 256))[-1]
     assert video.dtype == torch.bfloat16 and next(g.parameters()).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="tcwyt"):
-        config.create_object("txt2vid_tpu.models.tcwyt.Gen")
+    g = config.create_object("txt2vid.models.tcwyt.gen.Gen", dtype="bfloat16",
+                             init_method="ortho")
+    assert type(g).__module__ == "txt2vid_tpu_torch.models.tcwyt" and g.init_method == "ortho"
+    assert g.dtype == torch.bfloat16 and g.input_map.compute_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="NoSuchModel"):
+        config.create_object("txt2vid_tpu.models.tcwyt.NoSuchModel")
 
 
 def test_synthetic_captions_and_layout_match_jax(tmp_path):

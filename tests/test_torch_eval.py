@@ -378,7 +378,8 @@ def test_alignment_cli(jax_run, clips, tmp_path, capsys):  # noqa: F811
     # the ceiling's count replaces the sample count, as in the JAX CLI
     assert report["n"] == 16 and report["real_accuracy_digit"] < 1.0
     assert all(np.isfinite(report[k]) for k in ("accuracy_4way", "cond_spread"))
-    with pytest.raises(NotImplementedError, match="tcwyt"):
+    # --M on a checkpoint trained without a sample mapping: no m_vars to restore
+    with pytest.raises(ValueError, match="m_vars"):
         alignment.main(alignment.build_parser().parse_args(spec_argv(
             jax_run, "--M", "txt2vid_tpu.models.tcwyt.FrameMap", "--device", "cpu")))
 

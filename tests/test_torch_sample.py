@@ -238,6 +238,7 @@ def test_serve_gif_matches_jax_serve(jax_run, tmp_path, monkeypatch):
 
 
 def test_sample_flags_that_raise(jax_run):
-    with pytest.raises(NotImplementedError, match="tcwyt"):
+    # --M on a checkpoint trained without a sample mapping: no m_vars to restore
+    with pytest.raises(ValueError, match="m_vars"):
         port_sample.cli(spec_argv(jax_run, "--device", "cpu",
                                   "--M", "txt2vid_tpu.models.tcwyt.FrameMap"))

@@ -347,7 +347,7 @@ def test_step_went_through_the_attention_function(steps):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("end2end", True), ("img_model", True), ("gen_steps", 2)])
+    ("end2end", True), ("gen_steps", 2)])
 def test_unported_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         check_config(TrainConfig(**{field: value}))
@@ -355,10 +355,11 @@ def test_unported_fields_raise(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("gp_lambda", 10.0), ("gp_every", 4), ("gp_quarantine", True), ("clip_grad", 1.0),
-    ("discrim_steps", 2)])
+    ("discrim_steps", 2), ("img_model", True)])
 def test_ported_fields_accepted(field, value):
     """The regularization fields the training CLI's slice ported
-    (tests/test_torch_gp_step.py holds them to the JAX step)."""
+    (tests/test_torch_gp_step.py holds them to the JAX step) and img_model
+    (tests/test_torch_families_step.py)."""
     check_config(TrainConfig(**{field: value}))
 
 

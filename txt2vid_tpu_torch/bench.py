@@ -71,12 +71,13 @@ def dtype_name(bf16: bool = False, bf16_nu: bool = False, bf16_params: bool = Fa
 
 
 def build(seed: int = 0, batch_size: int = BATCH, device=None, bf16: bool = False,
-          bf16_nu: bool = False, bf16_params: bool = False):
+          bf16_nu: bool = False, bf16_params: bool = False, no_lstm: bool = False):
     """(TrainStep, batch) for the benchmark's model and data on `device`, with
-    bench.py's bf16 switches."""
+    bench.py's bf16 switches; `no_lstm` swaps the generator's ConvLSTM for
+    TGAN's seed generator (MultiScaleGen's no_lstm)."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if bf16 else None
-    gen = tganv2_cond.MultiScaleGen(num_frames=NUM_FRAMES, dtype=dtype)
+    gen = tganv2_cond.MultiScaleGen(num_frames=NUM_FRAMES, no_lstm=no_lstm, dtype=dtype)
     disc = tganv2_cond.MultiScaleDiscrim(dtype=dtype)
     enc = Seq2Seq(vocab_size=VOCAB_SIZE)
     params = torch.Generator().manual_seed(seed + 1)

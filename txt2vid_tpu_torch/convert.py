@@ -27,12 +27,21 @@ JAX layout (transposed views). Mappings:
 - Discriminator (`MultiScaleDiscrim`): `discrim` or `discrim{i}` /
   `stem_conv1|stem_conv2|stem_skip`, `down{i}/conv1|conv2|conv_identity`,
   `attn/theta|phi|g|o` and `attn/gamma`, `fc_uncond`, `fc`, `cond_proj`.
+- flax ConvTranspose kernel (*k, I, O) -> flipped along its spatial axes and
+  permuted to torch's (I, O, *k) (models/layers.py says why); the no_lstm
+  generator's `frame_seed_gen/dc{i}` are such kernels.
+- The TCWYT, TGAN and image-GAN modules (models/tcwyt.py, tgan.py, img.py)
+  map by their own structure (`module_to_flax`, `flax_to_module`): each
+  torch parameter's name is its flax path with dots, and its owner's type
+  says how the leaf maps (Dense, Conv, ConvTranspose, BatchNorm as above;
+  the LayerNorm's (H, W, C) scale and bias -> (C, H, W)).
 
 Any key that is not mapped raises.
 
 The train state (train_step.py:113-120, as flax serializes it): `step`,
-`g_vars` {params, batch_stats}, `d_vars` {"0": {params}, ...}, `txt_vars`
-{params} or None, `m_vars` None, and each optimizer's optax.adam state
+`g_vars` {params, batch_stats}, `d_vars` {"0": {params[, batch_stats]}, ...},
+`txt_vars` {params} or None, `m_vars` the sample mapping's {params,
+batch_stats} or None, and each optimizer's optax.adam state
 {"0": {count, mu, nu}, "1": {}} (ScaleByAdamState, EmptyState), with `mu` and
 `nu` trees {"g": params} and {"d": {"0": params, ...}}. They map onto torch
 Adam's `exp_avg` / `exp_avg_sq` with the parameters' transposes and `count`
@@ -47,7 +56,7 @@ import torch
 from txt2vid_tpu_torch.utils.msgpack import as_float32
 
 _GEN_PARAM = re.compile(
-    r"^(?:(?:fc|clstm/wx0|clstm/cells/w[xh]\d+"
+    r"^(?:(?:fc|clstm/wx0|clstm/cells/w[xh]\d+|frame_seed_gen/(?:dc|bn)\d+"
     r"|(?:base/)?up\d+/(?:bn1|bn2|conv1|conv2|conv_identity|attn/(?:theta|phi|g|o))"
     r"|render(?:_base|\d+)/(?:bn|conv))/(?:kernel|bias|scale)"
     r"|clstm/wx0_bias|(?:base/)?up\d+/attn/gamma)$")
@@ -55,7 +64,10 @@ _DISC_PARAM = re.compile(
     r"^discrim\d*/(?:(?:stem_conv1|stem_conv2|stem_skip|fc_uncond|fc|cond_proj"
     r"|down\d+/(?:conv1|conv2|conv_identity)|attn/(?:theta|phi|g|o))/(?:kernel|bias)"
     r"|attn/gamma)$")
-_GEN_STAT = re.compile(r"^(?:(?:base/)?up\d+/bn[12]|render(?:_base|\d+)/bn)/(?:mean|var)$")
+_GEN_STAT = re.compile(r"^(?:(?:base/)?up\d+/bn[12]|render(?:_base|\d+)/bn"
+                       r"|frame_seed_gen/bn\d+)/(?:mean|var)$")
+# the generator's transposed-convolution kernels (no_lstm's seed generator)
+_GEN_TRANSPOSED = re.compile(r"^frame_seed_gen/dc\d+/kernel$")
 _ENC_CELL = re.compile(
     r"^(encoder|sep_decoder)/l(\d+)_(fwd|bwd)/cell/([ih])([ifgo])/(kernel|bias)$")
 _ENC_OTHER = re.compile(r"^(encoder|sep_decoder)/(?:embed/embedding|to_vocab/(kernel|bias))$")
@@ -88,13 +100,27 @@ def _kernel(a):
     raise ValueError(f"kernel of rank {a.ndim}")
 
 
-def _params(params, pattern, what) -> dict:
+def _transposed_kernel(a):
+    """flax ConvTranspose kernel (*k, I, O) -> torch's (I, O, *k), flipped
+    along the spatial axes."""
+    n = a.ndim - 2
+    return np.flip(a, axis=tuple(range(n))).transpose(n, n + 1, *range(n))
+
+
+def _inverse_transposed_kernel(t):
+    n = t.dim() - 2
+    return t.permute(*range(2, n + 2), 0, 1).flip(tuple(range(n)))
+
+
+def _params(params, pattern, what, transposed=None) -> dict:
     sd = {}
     for path, a in _flatten(params):
         if not pattern.match(path):
             raise KeyError(f"unmapped {what} param {path}")
         *mods, leaf = path.split("/")
-        if leaf == "kernel":
+        if transposed is not None and transposed.match(path):
+            leaf, a = "weight", _transposed_kernel(a)
+        elif leaf == "kernel":
             leaf, a = "weight", _kernel(a)
         elif leaf == "scale":
             leaf = "weight"
@@ -104,7 +130,7 @@ def _params(params, pattern, what) -> dict:
 
 def jax_to_torch_generator(params, batch_stats=None) -> dict:
     """Generator `params` and `batch_stats` trees -> MultiScaleGen state dict."""
-    sd = _params(params, _GEN_PARAM, "generator")
+    sd = _params(params, _GEN_PARAM, "generator", _GEN_TRANSPOSED)
     for path, a in _flatten(batch_stats or {}):
         if not _GEN_STAT.match(path):
             raise KeyError(f"unmapped generator batch stat {path}")
@@ -144,13 +170,17 @@ def _inverse_kernel(t):
     raise ValueError(f"kernel of rank {t.dim()}")
 
 
-def _to_params(sd, what) -> dict:
+def _to_params(sd, what, transposed=None) -> dict:
     """Parameter state dict -> flax params tree: a weight of rank >= 2 is a
-    kernel, of rank 1 a BatchNorm scale."""
+    kernel (a transposed convolution's where `transposed` matches its path),
+    of rank 1 a BatchNorm scale."""
     flat = {}
     for name, t in sd.items():
         *mods, leaf = name.split(".")
-        if leaf == "weight":
+        if leaf == "weight" and transposed is not None and transposed.match(
+                "/".join(mods + ["kernel"])):
+            leaf, t = "kernel", _inverse_transposed_kernel(t)
+        elif leaf == "weight":
             leaf, t = ("kernel", _inverse_kernel(t)) if t.dim() >= 2 else ("scale", t)
         elif leaf not in ("bias", "gamma", "wx0_bias"):
             raise KeyError(f"unmapped {what} parameter {name}")
@@ -168,7 +198,7 @@ def torch_to_jax_generator(state_dict) -> tuple[dict, dict]:
             stats["/".join(mods + [leaf[len("running_"):]])] = t.detach()
         elif leaf != "num_batches_tracked":
             params[name] = t
-    return _to_params(params, "generator"), _nest(stats)
+    return _to_params(params, "generator", _GEN_TRANSPOSED), _nest(stats)
 
 
 def torch_to_jax_discriminator(state_dict) -> dict:
@@ -257,6 +287,138 @@ def jax_to_torch_encoder(params) -> dict:
     return sd
 
 
+# ------------------------------------------ modules mapped by their structure
+
+def _leaf_kinds(module) -> dict:
+    """Parameter name -> how its leaf maps: "dense", "conv", "transposed",
+    "scale" (BatchNorm), "ln" (LayerNormCHW's scale and bias) or "plain"."""
+    from torch import nn
+    kinds = {}
+    for prefix, m in module.named_modules():
+        for name, _ in m.named_parameters(recurse=False):
+            full = f"{prefix}.{name}" if prefix else name
+            kind = "plain"
+            if type(m).__name__ == "LayerNormCHW":
+                kind = "ln"
+            elif name == "weight":
+                if isinstance(m, nn.Linear):
+                    kind = "dense"
+                elif isinstance(m, nn.modules.conv._ConvTransposeNd):
+                    kind = "transposed"
+                elif isinstance(m, nn.modules.conv._ConvNd):
+                    kind = "conv"
+                elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    kind = "scale"
+            kinds[full] = kind
+    return kinds
+
+
+_TO_FLAX = {"dense": lambda t: t.t(), "conv": _inverse_kernel,
+            "transposed": _inverse_transposed_kernel, "ln": lambda t: t.permute(1, 2, 0),
+            "scale": lambda t: t, "plain": lambda t: t}
+_FROM_FLAX = {"dense": lambda a: a.T, "conv": _kernel, "transposed": _transposed_kernel,
+              "ln": lambda a: a.transpose(2, 0, 1), "scale": lambda a: a,
+              "plain": lambda a: a}
+
+
+def _flax_leaf(name, kind):
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "kernel" if kind in ("dense", "conv", "transposed") else "scale"
+    return "/".join(mods + [leaf])
+
+
+def module_to_flax(module, tensors=None) -> tuple[dict, dict]:
+    """A module's (params, batch_stats) trees in the JAX layout. `tensors`
+    (parameter name -> tensor, e.g. Adam moments) replaces the parameters;
+    batch_stats come from the BatchNorm running statistics ({} without)."""
+    kinds = _leaf_kinds(module)
+    if tensors is None:
+        tensors = dict(module.named_parameters())
+    if set(tensors) != set(kinds):
+        raise KeyError(f"tensors {sorted(set(tensors) ^ set(kinds))} do not fit the module")
+    params = {_flax_leaf(n, kinds[n]): _TO_FLAX[kinds[n]](t.detach())
+              for n, t in tensors.items()}
+    stats = {}
+    for name, t in module.named_buffers():
+        *mods, leaf = name.split(".")
+        if leaf in ("running_mean", "running_var"):
+            stats["/".join(mods + [leaf[len("running_"):]])] = t.detach()
+    return _nest(params), _nest(stats)
+
+
+def flax_to_module(module, params, batch_stats=None) -> dict:
+    """`params` (and `batch_stats`) trees of the module's JAX counterpart ->
+    its state dict (or, without batch_stats, its parameters by name, e.g.
+    Adam moments). Every leaf must map to one of the module's tensors and
+    every parameter must be given."""
+    kinds = _leaf_kinds(module)
+    by_path = {_flax_leaf(n, k): n for n, k in kinds.items()}
+    sd = {}
+    for path, a in _flatten(params):
+        if path not in by_path:
+            raise KeyError(f"unmapped {type(module).__name__} param {path}")
+        name = by_path[path]
+        sd[name] = _tensor(_FROM_FLAX[kinds[name]](a))
+    if len(sd) != len(kinds):
+        raise KeyError(f"{type(module).__name__} params lack "
+                       f"{sorted(set(kinds) - set(sd))}")
+    if batch_stats is not None:
+        buffers = dict(module.named_buffers())
+        for path, a in _flatten(batch_stats):
+            *mods, leaf = path.split("/")
+            name = ".".join(mods + [f"running_{leaf}"])
+            if leaf not in ("mean", "var") or name not in buffers:
+                raise KeyError(f"unmapped {type(module).__name__} batch stat {path}")
+            sd[name] = _tensor(a)
+        for name, t in buffers.items():
+            if name.endswith("num_batches_tracked"):
+                sd[name] = torch.zeros_like(t)
+    return sd
+
+
+def _is_multiscale_gen(module):
+    return type(module).__name__ == "MultiScaleGen"
+
+
+def vars_to_jax(module, tensors=None) -> tuple[dict, dict]:
+    """(params, batch_stats) trees of any of the port's GAN modules (the
+    TGANv2 ones through their path maps, the others by structure);
+    `tensors` as in module_to_flax."""
+    sd = dict(module.named_parameters()) if tensors is None else tensors
+    if _is_multiscale_gen(module):
+        if tensors is None:
+            return torch_to_jax_generator(module.state_dict())
+        return torch_to_jax_generator(sd)[0], {}
+    if getattr(module, "is_multiscale", False):
+        return torch_to_jax_discriminator(sd), {}
+    return module_to_flax(module, tensors)
+
+
+def vars_to_torch(module, params, batch_stats=None) -> dict:
+    """The inverse of vars_to_jax: the module's state dict (or its parameters
+    by name when batch_stats is None and the module has statistics)."""
+    if _is_multiscale_gen(module):
+        return jax_to_torch_generator(params, batch_stats)
+    if getattr(module, "is_multiscale", False):
+        return jax_to_torch_discriminator(params)
+    return flax_to_module(module, params, batch_stats)
+
+
+def module_vars(module) -> dict:
+    """The module's flax variables {"batch_stats"?, "params"}, as flax's init
+    makes them (batch_stats only where the module has BatchNorm)."""
+    params, stats = vars_to_jax(module)
+    return {"batch_stats": stats, "params": params} if stats else {"params": params}
+
+
+def load_module_vars(module, variables) -> None:
+    """Load flax variables {"params"[, "batch_stats"]} into the module."""
+    dev = next(module.parameters()).device
+    sd = vars_to_torch(module, variables["params"], variables.get("batch_stats"))
+    module.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+
+
 # ------------------------------------------------------------- the train state
 
 def _adam_moments(opt, named_params, key):
@@ -284,28 +446,28 @@ def _encoder_tree(enc):
 
 
 def torch_state_to_jax(step) -> dict:
-    """The GanTrainState tree of a port TrainStep (its gan's modules, both
-    optimizers and its step counter), leaves as tensors in the JAX layout."""
+    """The GanTrainState tree of a port TrainStep (its gan's modules, the
+    sample mapping's variables, both optimizers and its step counter), leaves
+    as tensors in the JAX layout."""
     gan = step.gan
-    g_params, g_stats = torch_to_jax_generator(gan.gen.state_dict())
     d_named = [list(d.named_parameters()) for d in gan.discrims]
     g_named = list(gan.gen.named_parameters())
 
     def wrap_g(moments):
-        return {"g": torch_to_jax_generator(moments)[0]}
+        return {"g": vars_to_jax(gan.gen, moments)[0]}
 
     def wrap_d(moments):
-        return {"d": {str(k): torch_to_jax_discriminator(
-            {n: moments[f"{k}.{n}"] for n, _ in named}) for k, named in enumerate(d_named)}}
+        return {"d": {str(k): vars_to_jax(d, {n: moments[f"{k}.{n}"] for n, _ in named})[0]
+                      for k, (d, named) in enumerate(zip(gan.discrims, d_named))}}
 
     d_flat = [(f"{k}.{n}", p) for k, named in enumerate(d_named) for n, p in named]
+    mapping = gan.sample_mapping
     return {
         "step": np.array(step.step, np.int32),
-        "g_vars": {"batch_stats": g_stats, "params": g_params},
-        "d_vars": {str(k): {"params": torch_to_jax_discriminator(d.state_dict())}
-                   for k, d in enumerate(gan.discrims)},
+        "g_vars": module_vars(gan.gen),
+        "d_vars": {str(k): module_vars(d) for k, d in enumerate(gan.discrims)},
         "txt_vars": None if gan.cond_encoder is None else _encoder_tree(gan.cond_encoder),
-        "m_vars": None,
+        "m_vars": None if mapping is None else module_vars(mapping),
         "opt_g_state": _adam_tree(step.opt_g, g_named, wrap_g),
         "opt_d_state": _adam_tree(step.opt_d, d_flat, wrap_d),
     }
@@ -353,37 +515,41 @@ def load_encoder_vars(enc, txt_vars):
 
 def jax_state_to_torch(tree, step) -> None:
     """Load a GanTrainState tree (numpy leaves) into a port TrainStep: its
-    gan's modules, both optimizers' Adam states and its step counter."""
+    gan's modules, the sample mapping, both optimizers' Adam states and its
+    step counter."""
     gan = step.gan
-    dev = next(gan.gen.parameters()).device
-
-    def put(sd, module):
-        module.load_state_dict({k: v.to(dev) for k, v in sd.items()})
-
-    put(jax_to_torch_generator(tree["g_vars"]["params"], tree["g_vars"].get("batch_stats")),
-        gan.gen)
+    load_module_vars(gan.gen, tree["g_vars"])
     if len(tree["d_vars"]) != len(gan.discrims):
         raise ValueError(f"the state has {len(tree['d_vars'])} discriminators, "
                          f"the model {len(gan.discrims)}")
     for k, d in enumerate(gan.discrims):
-        put(jax_to_torch_discriminator(tree["d_vars"][str(k)]["params"]), d)
+        load_module_vars(d, tree["d_vars"][str(k)])
+    if (tree.get("m_vars") is None) != (gan.sample_mapping is None):
+        raise ValueError("the state and the model disagree on a sample mapping (--M)")
+    if gan.sample_mapping is not None:
+        load_module_vars(gan.sample_mapping, tree["m_vars"])
     if gan.cond_encoder is not None and tree.get("txt_vars") is not None:
         with torch.no_grad():
             load_encoder_vars(gan.cond_encoder, tree["txt_vars"])
     _load_adam(step.opt_g, list(gan.gen.named_parameters()), tree["opt_g_state"],
-               lambda t: jax_to_torch_generator(t["g"]))
+               lambda t: _param_tensors(gan.gen, t["g"]))
 
     def unwrap_d(t):
         out = {}
-        for k in range(len(gan.discrims)):
-            out.update({f"{k}.{n}": v for n, v in
-                        jax_to_torch_discriminator(t["d"][str(k)]).items()})
+        for k, d in enumerate(gan.discrims):
+            out.update({f"{k}.{n}": v for n, v in _param_tensors(d, t["d"][str(k)]).items()})
         return out
 
     _load_adam(step.opt_d, [(f"{k}.{n}", p) for k, d in enumerate(gan.discrims)
                             for n, p in d.named_parameters()],
                tree["opt_d_state"], unwrap_d)
     step.step = int(np.asarray(tree["step"]))
+
+
+def _param_tensors(module, params) -> dict:
+    """A params-shaped tree (Adam moments) -> tensors by parameter name."""
+    sd = vars_to_torch(module, params)
+    return {n: sd[n] for n, _ in module.named_parameters()}
 
 
 # ------------------------------------------------- the sentence-pretrain state

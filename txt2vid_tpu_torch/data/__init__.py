@@ -13,6 +13,8 @@ caption vocabulary, the `.npy` video dataset, collation and a threaded loader.
 - BatchLoader does the same for batch-level datasets, which assemble whole
   batches themselves (`get_batch`, the packed frame cache of data/packed.py);
   get_loader picks it for them.
+- cifar10_dataset (data/cifar10.py) yields CIFAR-10 images without captions,
+  for the image GAN.
 """
 
 import pickle
@@ -26,7 +28,7 @@ from txt2vid_tpu_torch.data.vocab import (Vocab, build_vocab, encode_caption, lo
 
 __all__ = ["Vocab", "build_vocab", "encode_caption", "load_pickle", "pad_captions", "VideoDataset",
            "transform_frames", "collate", "Loader", "BatchLoader", "get_loader",
-           "my_dataset"]
+           "my_dataset", "cifar10_dataset"]
 
 
 def pick_frames(num_available: int, num_frames: int = 16, random: bool = False,
@@ -192,6 +194,14 @@ def my_dataset(data=None, vocab=None, anno=None, transform=None, random_frames=0
     return VideoDataset(video_dir=data, vocab=vocab, captions=anno, num_frames=num_frames,
                         frame_size=frame_size, num_channels=num_channels,
                         random_frames=random_frames, normalize=normalize)
+
+
+def cifar10_dataset(data=None, vocab=None, anno=None, transform=None, frame_size=None,
+                    num_channels=3, **_):
+    """The CIFAR-10 image dataset of config/cifar10.json (:337-340), from the
+    local `cifar-10-batches-py` pickles (data/cifar10.py)."""
+    from txt2vid_tpu_torch.data.cifar10 import Cifar10Dataset
+    return Cifar10Dataset(data, frame_size=frame_size, num_channels=num_channels)
 
 
 def get_loader(dset=None, batch_size=64, val=False, num_workers=4, max_caption_len=32,

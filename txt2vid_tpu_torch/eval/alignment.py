@@ -202,15 +202,13 @@ def main(args):
     from txt2vid_tpu_torch.train.setup import setup
     from txt2vid_tpu_torch.utils import status
 
-    if args.M:
-        raise NotImplementedError("--M (the tcwyt sample mapping) comes in a later slice "
-                                  "of the port")
     _, device = setup(args)
     status(f"Restoring {args.weights}{' (EMA generator)' if args.ema else ''}")
     gan, vocab = load_checkpoint_gan(
         args.weights, args.G, args.D, sent=args.sent or "txt2vid_tpu.models.txt.Seq2Seq",
         vocab_path=args.vocab, frame_sizes=tuple(args.frame_sizes),
-        num_frames=args.num_frames, num_channels=args.num_channels, ema=args.ema)
+        num_frames=args.num_frames, num_channels=args.num_channels, ema=args.ema,
+        M=args.M)
     gan.gen.to(device)
     gan.cond_encoder.to(device).eval()
     report = alignment_report(gan, vocab, k_per_class=args.k_per_class, seed=args.seed,
@@ -228,7 +226,9 @@ def build_parser():
     p.add_argument("--G", required=True)
     p.add_argument("--D", nargs="+", required=True)
     p.add_argument("--sent", default=None)
-    p.add_argument("--M", default=None, help="not in the port yet (raises)")
+    p.add_argument("--M", default=None,
+                   help="the sample mapping the checkpoint was trained with (--M, e.g. "
+                        "TCWYT's FrameMap); only its variables are restored")
     p.add_argument("--vocab", required=True)
     p.add_argument("--frame_sizes", type=int, nargs="+", default=[8, 16, 32, 64])
     p.add_argument("--num_frames", type=int, default=16)

@@ -38,8 +38,8 @@ from torch import nn
 
 from txt2vid_tpu_torch import resolve_device
 from txt2vid_tpu_torch.data.synthetic import MOTION_CLASSES
-from txt2vid_tpu_torch.eval.metrics import (SameConv3d, batched_apply, fid_from_features,
-                                           load_flax_params)
+from txt2vid_tpu_torch.eval.metrics import batched_apply, fid_from_features, load_flax_params
+from txt2vid_tpu_torch.models.layers import SameConv3d
 from txt2vid_tpu_torch.ops.initializers import init_from_seed, lecun_normal_
 from txt2vid_tpu_torch.utils import msgpack
 

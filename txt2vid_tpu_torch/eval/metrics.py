@@ -10,8 +10,8 @@
 
 flax's Conv pads SAME: with stride 2 on an even size that is (0, 1), one
 row and column after the input and none before; a symmetric padding=1
-would sample windows shifted by a pixel. `same_pad` pads as flax does, here
-and in the classifier.
+would sample windows shifted by a pixel. models/layers.SameConv3d pads as
+flax does, here and in the classifier.
 """
 
 import numpy as np
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from txt2vid_tpu_torch import resolve_device
+from txt2vid_tpu_torch.models.layers import SameConv3d
 from txt2vid_tpu_torch.ops.initializers import lecun_normal_
 
 
@@ -48,23 +49,6 @@ def fid_from_features(feats_real, feats_fake):
     ff = np.asarray(feats_fake, np.float64)
     return frechet_distance(fr.mean(0), np.cov(fr, rowvar=False),
                             ff.mean(0), np.cov(ff, rowvar=False))
-
-
-def same_pad(x, kernel, strides):
-    """Pad an (N, C, *spatial) tensor as flax's padding="SAME" does: each
-    axis to out = ceil(size / stride), the odd element after."""
-    pads = []
-    for size, k, s in zip(x.shape[2:], kernel, strides):
-        total = max((-(-size // s) - 1) * s + k - size, 0)
-        pads.append((total // 2, total - total // 2))
-    return F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
-
-
-class SameConv3d(nn.Conv3d):
-    """nn.Conv3d with flax's SAME padding (no padding of its own)."""
-
-    def forward(self, x):
-        return super().forward(same_pad(x, self.kernel_size, self.stride))
 
 
 def load_flax_params(modules: dict, params: dict):
@@ -147,6 +131,9 @@ def discrim_features(gan, videos, batch_size: int = 32):
     first scale's pooled features, the input of its heads) on the device it
     lives on. Its Attention3d runs the fused attention forward (K1)."""
     d = gan.discrims[0]
+    if not getattr(d, "is_multiscale", False):
+        raise ValueError(f"discriminator 0 ({type(d).__name__}) gives no features for the "
+                         "discriminator FID: evaluate with --no_discrim_fid")
     device = next(d.parameters()).device
     return batched_apply(lambda v: gan.apply_discrim(0, [v])[0][2], videos, batch_size, device)
 

@@ -35,9 +35,6 @@ def main(args):
     from txt2vid_tpu_torch.train.setup import setup
     from txt2vid_tpu_torch.utils import status
 
-    if args.M:
-        raise NotImplementedError("--M (the tcwyt sample mapping) comes in a later slice "
-                                  "of the port")
     _, device = setup(args)
     vocab = load_pickle(args.vocab) if args.vocab else None
     status(f"Restoring {args.weights}")
@@ -45,7 +42,7 @@ def main(args):
         args.weights, args.G, args.D, sent=args.sent,
         vocab_path=None if args.dont_use_sent else args.vocab,
         frame_sizes=tuple(args.frame_sizes), num_frames=args.num_frames,
-        num_channels=args.num_channels)
+        num_channels=args.num_channels, M=args.M)
     for m in (gan.gen, gan.cond_encoder, *gan.discrims):
         if m is not None:
             m.to(device).eval()
@@ -92,7 +89,9 @@ def build_parser():
     p.add_argument("--G", required=True)
     p.add_argument("--D", nargs="+", required=True)
     p.add_argument("--sent", default=None)
-    p.add_argument("--M", default=None, help="not in the port yet (raises)")
+    p.add_argument("--M", default=None,
+                   help="the sample mapping the checkpoint was trained with (--M, e.g. "
+                        "TCWYT's FrameMap); only its variables are restored")
     p.add_argument("--vocab", default=None)
     p.add_argument("--dont_use_sent", action="store_true")
     p.add_argument("--data", required=True)

@@ -14,7 +14,8 @@ import os
 
 import torch
 
-from txt2vid_tpu_torch.convert import jax_to_torch_generator, torch_to_jax_generator
+from txt2vid_tpu_torch.convert import (jax_to_torch_generator, torch_to_jax_generator,
+                                       vars_to_jax, vars_to_torch)
 from txt2vid_tpu_torch.utils.checkpoint import restore_state, save_state
 
 
@@ -40,25 +41,29 @@ def ema_path(checkpoint_path) -> str:
     return str(checkpoint_path) + ".ema"
 
 
-def ema_tree(ema: dict) -> dict:
-    """The EMA as the generator's flax params tree (what the JAX package saves)."""
-    return torch_to_jax_generator(ema)[0]
+def ema_tree(ema: dict, gen: torch.nn.Module | None = None) -> dict:
+    """The EMA as the generator's flax params tree (what the JAX package
+    saves); `gen` names the generator it averages (default a TGANv2
+    MultiScaleGen)."""
+    if gen is None:
+        return torch_to_jax_generator(ema)[0]
+    return vars_to_jax(gen, ema)[0]
 
 
-def save_ema(ema: dict, checkpoint_path) -> str:
-    return save_state(ema_tree(ema), ema_path(checkpoint_path))
+def save_ema(ema: dict, checkpoint_path, gen: torch.nn.Module | None = None) -> str:
+    return save_state(ema_tree(ema, gen), ema_path(checkpoint_path))
 
 
-def load_ema(checkpoint_path, template: dict):
+def load_ema(checkpoint_path, template: dict, gen: torch.nn.Module | None = None):
     """The sibling ``.ema`` average of a checkpoint, as tensors like `template`
     (an EMA dict, or the generator's named parameters), or None when the
-    checkpoint has none."""
+    checkpoint has none; `gen` as in ema_tree."""
     path = ema_path(checkpoint_path)
     if not os.path.exists(path):
         return None
-    tree = restore_state(ema_tree(template), path)
-    return {n: v.to(template[n].device, template[n].dtype)
-            for n, v in jax_to_torch_generator(tree).items()}
+    tree = restore_state(ema_tree(template, gen), path)
+    params = jax_to_torch_generator(tree) if gen is None else vars_to_torch(gen, tree)
+    return {n: params[n].to(template[n].device, template[n].dtype) for n in template}
 
 
 @torch.no_grad()

@@ -130,26 +130,34 @@ def _interpolate(alpha, real, fake):
 
 
 def gradient_penalty(d_fn, alpha, real_x, fake_x, real_cond=None, fake_cond=None,
-                     zero_center: bool = False, combine: str = "mean"):
+                     zero_center: bool = False, combine: str = "mean", real_xbar=None,
+                     fake_xbar=None):
     """WGAN-GP on alpha-interpolated inputs (losses.py:136-174).
 
-    d_fn(x, cond) -> (uncond_logit | None, cond_logit | None); alpha: (B,) in
-    [0, 1), shared by x and cond. The norm is of the gradient of the summed
-    logits w.r.t. the interpolated x only, taken with create_graph=True so the
-    penalty can be differentiated w.r.t. D's parameters; float32, per sample
-    sqrt(sum g^2 + 1e-12). zero_center: ||g||^2 (R1-style) instead of
-    (||g|| - 1)^2; combine: "mean" or "sum" over the batch."""
+    d_fn(x, cond) -> (uncond_logit | None, cond_logit | None), or, with the
+    sample mapping's real_xbar and fake_xbar, d_fn(x, cond, xbar); alpha:
+    (B,) in [0, 1), shared by x, cond and xbar. The norm is of the gradient
+    of the summed logits w.r.t. the interpolated x only, taken with
+    create_graph=True so the penalty can be differentiated w.r.t. D's
+    parameters; float32, per sample sqrt(sum g^2 + 1e-12). A discriminator
+    that does not read x (the TCWYT frame and motion heads read xbar alone)
+    has a zero gradient there, as jax.grad gives: each norm is then
+    sqrt(1e-12). zero_center: ||g||^2 (R1-style) instead of (||g|| - 1)^2;
+    combine: "mean" or "sum" over the batch."""
     b = real_x.shape[0]
-    a = alpha.reshape((b,) + (1,) * (real_x.ndim - 1)).to(real_x.dtype)
-    ix = _interpolate(a, real_x.detach(), fake_x.detach()).requires_grad_(True)
-    icond = None
-    if real_cond is not None and fake_cond is not None:
-        ac = alpha.reshape((b,) + (1,) * (real_cond.ndim - 1)).to(real_cond.dtype)
-        icond = _interpolate(ac, real_cond, fake_cond)
-    uncond, cond_out = d_fn(ix, icond)
+
+    def mix(real, fake):
+        if real is None or fake is None:
+            return None
+        a = alpha.reshape((b,) + (1,) * (real.ndim - 1)).to(real.dtype)
+        return _interpolate(a, real, fake)
+
+    ix = mix(real_x.detach(), fake_x.detach()).requires_grad_(True)
+    icond, ixbar = mix(real_cond, fake_cond), mix(real_xbar, fake_xbar)
+    uncond, cond_out = d_fn(ix, icond) if ixbar is None else d_fn(ix, icond, ixbar)
     total = sum(t.sum() for t in (uncond, cond_out) if t is not None)
-    (grads,) = torch.autograd.grad(total, ix, create_graph=True)
-    grads = grads.float()
+    (grads,) = torch.autograd.grad(total, ix, create_graph=True, allow_unused=True)
+    grads = torch.zeros_like(ix, dtype=torch.float32) if grads is None else grads.float()
     norms = torch.sqrt(torch.sum(grads.reshape(b, -1) ** 2, dim=1) + 1e-12)
     per_sample = norms ** 2 if zero_center else (norms - 1.0) ** 2
     return per_sample.sum() if combine == "sum" else per_sample.mean()

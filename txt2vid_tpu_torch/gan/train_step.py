@@ -31,9 +31,18 @@ caption encoder are not copied. Without a module dtype the layers promote
 the bf16 weights back to the input's float32 (flax's promote_dtype), so
 compute_dtype alone computes in float32 from weights rounded to bf16.
 
+The model families: a generator that renders one scale (TCWYT, TGAN, the
+image GAN) draws no subsample phases; img_model (--img_model) and a single
+frame size take the batch as the one scale, with no pyramid
+(train_step.py:284-288); a sample mapping M (the gan's `sample_mapping`)
+maps the reals and the detached fakes in the D phase and the live fakes in
+the G loss (gan/cond_gan.py). Only the generator's BatchNorm statistics
+change: the discriminators' and M's forwards leave theirs alone, as the JAX
+step discards them.
+
 The step counter `step` sets the draws and the lazy-GP phase; a restored
-checkpoint sets it (convert.jax_state_to_torch). gen_steps > 1, end2end and
-img_model raise NotImplementedError naming the field. The
+checkpoint sets it (convert.jax_state_to_torch). gen_steps > 1 and end2end
+raise NotImplementedError naming the field. The
 step runs one generator forward for either value of shared_gen_fwd: outside
 end2end, which is refused, JAX's two-forward form computes the same numbers
 (its D-phase forward discards its BatchNorm statistics), so the flag changes
@@ -77,6 +86,7 @@ class TrainConfig:
 _IMPLEMENTED = {"frame_sizes", "subsample_input", "latent_size", "mean_discrim_loss",
                 "mean_gen_loss", "shared_gen_fwd", "discrim_steps", "gen_steps",
                 "gp_lambda", "gp_every", "gp_quarantine", "clip_grad", "compute_dtype",
+                "img_model",
                 # only read with end2end, which is refused below
                 "end2end_txt_in_g"}
 
@@ -233,7 +243,7 @@ class TrainStep:
         n_pyr = len(cfg.frame_sizes) - 1 if cfg.subsample_input else 0
         pyramid = [int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_pyr)]
         gen_phases = [int(torch.randint(0, 2, (), generator=gen))
-                      for _ in range(self.gan.gen.num_blocks - 1)]
+                      for _ in range(getattr(self.gan.gen, "num_blocks", 1) - 1)]
         d_steps = []
         for _ in range(cfg.discrim_steps):
             perms, alphas = [], [] if cfg.gp_lambda > 0 else None
@@ -272,7 +282,10 @@ class TrainStep:
             loss.backward()
             loss_gp = self._d_loss(real_scales, fakes, cond_scales, perms, alphas,
                                    gp_scale, gp_only=True)
-            g_gp = torch.autograd.grad(loss_gp, d_params, allow_unused=True)
+            # a penalty that reaches no parameter (a discriminator that does
+            # not read x) has no graph: its gradient is zeros
+            g_gp = (torch.autograd.grad(loss_gp, d_params, allow_unused=True)
+                    if loss_gp.requires_grad else [None] * len(d_params))
             g_gp = [torch.zeros_like(p) if g is None else g for p, g in zip(d_params, g_gp)]
             quarantined = quarantine_nonfinite_(g_gp)
             ok = torch.isfinite(loss_gp)
@@ -301,8 +314,11 @@ class TrainStep:
         if gan.cond_encoder is not None and batch.get("captions") is not None:
             with torch.no_grad():
                 cond = gan.encode(batch["captions"], batch["lengths"])
-        real_scales, cond_scales = multiscale_pyramid(
-            x, cond, list(cfg.frame_sizes), draws.pyramid_phases, cfg.subsample_input)
+        if cfg.img_model:
+            real_scales, cond_scales = [x], (None if cond is None else [cond])
+        else:
+            real_scales, cond_scales = multiscale_pyramid(
+                x, cond, list(cfg.frame_sizes), draws.pyramid_phases, cfg.subsample_input)
 
         gan.gen.train()
         cdt = cfg.compute_dtype

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from txt2vid_tpu_torch.convert import torch_state_to_jax
+from txt2vid_tpu_torch.gan.cond_gan import as_list
 from txt2vid_tpu_torch.utils import RollingAvg, Stopwatch, ensure_exists, status
 from txt2vid_tpu_torch.utils.checkpoint import AsyncCheckpointer, checkpoint_name
 
@@ -159,7 +160,9 @@ def sample(gen, batch_size: int, generator: torch.Generator, cond=None,
            latent_size: int | None = None):
     """Eval-mode generation: running-statistics BatchNorm, no subsampling, the
     final scale only. z comes from draw_z. Returns a list of scales as numpy
-    arrays; the generator's train/eval mode is restored."""
+    arrays (one, for a single-scale generator; images (B, H, W, C) for an
+    image generator, which the grids show as 1-frame videos); the
+    generator's train/eval mode is restored."""
     device = next(gen.parameters()).device
     z = torch.as_tensor(draw_z(batch_size, latent_size or gen.latent_size, generator),
                         dtype=torch.float32)
@@ -169,7 +172,7 @@ def sample(gen, batch_size: int, generator: torch.Generator, cond=None,
         out = gen(z.to(device), cond=cond, train=False)
     finally:
         gen.train(was_training)
-    return [o.float().cpu().numpy() for o in out]
+    return [o.float().cpu().numpy() for o in as_list(out)]
 
 
 @torch.no_grad()
@@ -260,7 +263,7 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
     def save_checkpoint(path):
         checkpointer.save(torch_state_to_jax(train_step), path)
         if ema_checkpointer is not None:
-            ema_checkpointer.save(ema_mod.ema_tree(ema), ema_mod.ema_path(path))
+            ema_checkpointer.save(ema_mod.ema_tree(ema, gan.gen), ema_mod.ema_path(path))
 
     pending = []   # (iteration, device metrics)
     nan_abort = getattr(params, "nan_abort", True)

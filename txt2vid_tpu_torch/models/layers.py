@@ -12,6 +12,11 @@ out; cuDNN and oneDNN accumulate in float32); with dtype None they are
 promoted to their common type, so a bf16 weight copy under a float32 input
 computes in float32 (`promote`, flax's promote_dtype). BatchNorm takes its
 statistics and normalises in float32 and returns `dtype`.
+
+The TCWYT, TGAN and image-GAN families (models/tcwyt.py, tgan.py, img.py)
+add flax's transposed convolution (`ConvTranspose1d/2d/3d`), convolutions
+padded as flax's SAME pads (`SameConv2d/3d`, `same_pad`), BatchNorm over
+1-D and 3-D features and the image critic's LayerNorm over (C, H, W).
 """
 
 import contextlib
@@ -30,8 +35,10 @@ from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
 
 # flax BatchNorm(momentum=0.9): running = 0.9 * running + 0.1 * batch statistic
 _FLAX_MOMENTUM = 0.9
-# set while remat recomputes a block's forward for its backward
-_RECOMPUTING = contextvars.ContextVar("txt2vid_remat_recomputing", default=False)
+# set while BatchNorm must leave its running statistics alone: remat's
+# recomputation of a block's forward, and the forwards whose statistics the
+# JAX step discards (`frozen_batch_stats`)
+_STATS_FROZEN = contextvars.ContextVar("txt2vid_batch_stats_frozen", default=False)
 
 
 class _recompute_context:
@@ -45,11 +52,11 @@ class _recompute_context:
     def __enter__(self):
         kernels = kernel_disabled(self.kernels_off)
         kernels.__enter__()
-        self._entered.append((_RECOMPUTING.set(True), kernels))
+        self._entered.append((_STATS_FROZEN.set(True), kernels))
 
     def __exit__(self, *exc):
         token, kernels = self._entered.pop()
-        _RECOMPUTING.reset(token)
+        _STATS_FROZEN.reset(token)
         return kernels.__exit__(*exc)
 
 
@@ -67,6 +74,20 @@ def remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(),
                                           _recompute_context(kernels_off)))
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Inside, train-mode BatchNorm normalises with the batch's statistics and
+    leaves its running statistics as they are. The JAX package applies every
+    discriminator and the sample mapping with mutable=["batch_stats"] and
+    throws the update away (cond_gan.py:82-107): their running statistics
+    keep their init values, and gan/cond_gan.py runs their forwards in here."""
+    token = _STATS_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.reset(token)
 
 
 def promote(dtype, *tensors):
@@ -119,14 +140,16 @@ def _init_conv(conv, generator, gain: float = 1.0):
         nn.init.zeros_(conv.bias)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class _FlaxBatchNorm:
     """BatchNorm with flax's training semantics (layers.py:107-108), under
-    torch's state-dict names. Training mode normalises with the batch mean and
-    the biased batch variance and updates the running statistics as
-    0.9 * old + 0.1 * batch, the variance biased too (torch's own update uses
-    momentum 0.1 and the unbiased variance). Eval mode uses the running
-    statistics. The recomputation of a remat block (see `remat`) normalises
-    the same way and leaves the statistics alone.
+    torch's state-dict names, over the channel axis 1 of (B, C), (B, C, L),
+    (B, C, H, W) or (B, C, T, H, W). Training mode normalises with the batch
+    mean and the biased batch variance, over every axis but 1, and updates
+    the running statistics as 0.9 * old + 0.1 * batch, the variance biased
+    too (torch's own update uses momentum 0.1 and the unbiased variance).
+    Eval mode uses the running statistics. The recomputation of a remat block
+    (see `remat`) and the forwards under `frozen_batch_stats` normalise the
+    same way and leave the statistics alone.
 
     Every dtype takes one path, flax's BatchNorm(dtype), never F.batch_norm's
     mixed-type kernels, which differ by backend: input, scale and bias cast to
@@ -140,7 +163,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.compute_dtype = compute_dtype
 
     def _update_stats(self, mean, var):
-        if not _RECOMPUTING.get():      # remat's recomputation updates nothing
+        if not _STATS_FROZEN.get():
             with torch.no_grad():
                 self.running_mean.mul_(_FLAX_MOMENTUM).add_(mean, alpha=1 - _FLAX_MOMENTUM)
                 self.running_var.mul_(_FLAX_MOMENTUM).add_(var, alpha=1 - _FLAX_MOMENTUM)
@@ -151,7 +174,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         x32, weight, bias = promote(torch.promote_types(x.dtype, torch.float32),
                                     x, self.weight, self.bias)
         if self.training:
-            self._update_stats(*reversed(torch.var_mean(x32.detach(), dim=(0, 2, 3),
+            dims = (0, *range(2, x.dim()))
+            self._update_stats(*reversed(torch.var_mean(x32.detach(), dim=dims,
                                                         correction=0)))
             y = F.batch_norm(x32, None, None, weight, bias, True, 0.0, self.eps)
         else:
@@ -161,6 +185,138 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def init_weights(self, generator):
         self.reset_parameters()     # weight 1, bias 0, running mean 0 / var 1
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """Over (B, C) or (B, C, L)."""
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """Over (B, C, H, W)."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """Over (B, C, T, H, W)."""
+
+
+def same_pad(x, kernel, strides):
+    """Pad an (N, C, *spatial) tensor as flax's padding="SAME" does: each
+    axis to out = ceil(size / stride), the odd element after (with stride 2
+    and an even kernel on an odd size, or an odd total). A symmetric torch
+    padding would sample windows shifted by a pixel there."""
+    pads = []
+    for size, k, s in zip(x.shape[2:], kernel, strides):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    if not any(p for lo_hi in pads for p in lo_hi):
+        return x
+    return F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+
+
+class SameConv2d(Conv2d):
+    """Conv2d with flax's SAME padding (no padding of its own) and its cast."""
+
+    def _apply_cast(self, x, weight, bias):
+        return self._conv_forward(same_pad(x, self.kernel_size, self.stride), weight, bias)
+
+
+class SameConv3d(Conv3d):
+    """Conv3d with flax's SAME padding (no padding of its own) and its cast."""
+
+    def _apply_cast(self, x, weight, bias):
+        return self._conv_forward(same_pad(x, self.kernel_size, self.stride), weight, bias)
+
+
+def transpose_padding(k: int, s: int, padding: str):
+    """(before, after) padding of the stride-dilated input that flax's
+    ConvTranspose (jax.lax.conv_transpose) gives one axis, for a kernel k,
+    stride s and padding "SAME" or "VALID"."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+    elif padding == "VALID":
+        pad_len = k + s - 2 + max(k - s, 0)
+        pad_a = k - 1
+    else:
+        raise ValueError(f"padding {padding!r}: SAME or VALID")
+    return pad_a, pad_len - pad_a
+
+
+class _ConvTranspose(_Casting):
+    """flax's nn.ConvTranspose (transpose_kernel=False), in torch's layout.
+
+    flax convolves the stride-dilated input, padded by `transpose_padding`,
+    with its kernel (*k, in, out) as it is; torch's transposed convolution
+    correlates with the kernel flipped. The torch weight (in, out, *k) is
+    therefore the flax kernel flipped along its spatial axes and permuted
+    (convert.py does it), and the padding is torch's
+    padding = k - 1 - before, output_padding = after - before."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding="SAME",
+                 bias=True, compute_dtype=None):
+        n = self._ndim
+        ks = (kernel_size,) * n if isinstance(kernel_size, int) else tuple(kernel_size)
+        st = (stride,) * n if isinstance(stride, int) else tuple(stride)
+        pads = [transpose_padding(k, s, padding) for k, s in zip(ks, st)]
+        super().__init__(in_channels, out_channels, ks, stride=st,
+                         padding=tuple(k - 1 - a for k, (a, _) in zip(ks, pads)),
+                         output_padding=tuple(b - a for a, b in pads), bias=bias,
+                         compute_dtype=compute_dtype)
+
+    def _apply_cast(self, x, weight, bias):
+        return self._conv(x, weight, bias, self.stride, self.padding, self.output_padding)
+
+
+class ConvTranspose1d(_ConvTranspose, nn.ConvTranspose1d):
+    _ndim, _conv = 1, staticmethod(F.conv_transpose1d)
+
+
+class ConvTranspose2d(_ConvTranspose, nn.ConvTranspose2d):
+    _ndim, _conv = 2, staticmethod(F.conv_transpose2d)
+
+
+class ConvTranspose3d(_ConvTranspose, nn.ConvTranspose3d):
+    _ndim, _conv = 3, staticmethod(F.conv_transpose3d)
+
+
+class LayerNormCHW(nn.Module):
+    """flax's nn.LayerNorm(reduction_axes=feature_axes=(-3, -2, -1),
+    epsilon=1e-5) over an NHWC input, here over (C, H, W) of an NCHW one:
+    one mean and variance per sample, scale and bias of shape (C, H, W)
+    (convert.py transposes flax's (H, W, C)). The statistics are flax's fast
+    ones, E[x^2] - E[x]^2 clipped at 0, in float32; the result has
+    `compute_dtype` (or the common type of input and parameters)."""
+
+    def __init__(self, shape, eps: float = 1e-5, compute_dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+
+    def init_weights(self, generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        out = self.compute_dtype or torch.promote_types(
+            torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = tuple(range(1, x.dim()))
+        mean = x32.mean(dims, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(dims, keepdim=True) - mean * mean, min=0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(out)
+
+
+def init_kernels(module, generator, gain: float = 1.0):
+    """The JAX package's init of each of `module`'s own convolutions and
+    dense layers (its direct children; submodules with an `init_weights` of
+    their own init themselves): the active kernel init times `gain`, zero
+    biases."""
+    for child in module.children():
+        if isinstance(child, (nn.Linear, nn.modules.conv._ConvNd)):
+            _init_conv(child, generator, gain)
 
 
 def _tokens(x):

@@ -2,7 +2,10 @@
 txt2vid_tpu/models/tganv2.py).
 
 Generator: z [‖ cond] -> fc -> (fm_h, fm_w, fm_channels) latent plane ->
-ConvLSTM unroll of `num_frames` steps -> frames folded into the batch -> base
+ConvLSTM unroll of `num_frames` steps (or, with `no_lstm`, TGAN's
+FrameSeedGenerator expanding the fc output into 16 per-frame planes, cut to
+num_frames <= 16; it gets no dtype, as in the JAX package, so under bf16 it
+computes in float32 from the bf16 fc output) -> frames folded into the batch -> base
 UpBlock stack 1024-512-256-128 -> `additional_blocks` UpBlocks, each paired
 with a RenderBlock. In training a subsample (batch and frames halve, random
 temporal phase) runs before every block after the base and every scale is
@@ -33,6 +36,7 @@ from torch import nn
 from txt2vid_tpu_torch.models.conv_lstm import ConvLSTM
 from txt2vid_tpu_torch.models.layers import Linear, RenderBlock, UpBlock, remat
 from txt2vid_tpu_torch.models.resnet3d import Resnet3D
+from txt2vid_tpu_torch.models.tgan import FrameSeedGenerator
 from txt2vid_tpu_torch.ops.initializers import kernel_init_
 from txt2vid_tpu_torch.ops.subsample import subsample_video
 
@@ -58,7 +62,8 @@ class MultiScaleGen(nn.Module):
     def __init__(self, latent_size: int = 256, width: int = 128, height: int = 128,
                  num_channels: int = 3, additional_blocks: Sequence[int] = (64, 32, 32),
                  fm_channels: int = 1024, num_frames: int = 16, cond_dim: int = 0,
-                 fm_stride: int | None = None, with_non_local: bool = False,
+                 no_lstm: bool = False, fm_stride: int | None = None,
+                 with_non_local: bool = False,
                  use_kernel: bool = True, remat: bool = False, dtype=None):
         super().__init__()
         self.remat = remat
@@ -71,8 +76,15 @@ class MultiScaleGen(nn.Module):
         self.fm_h = max(1, height // stride)
         self.fc = Linear(latent_size + cond_dim, self.fm_h * self.fm_w * fm_channels,
                          compute_dtype=dtype)
-        self.clstm = ConvLSTM(fm_channels, (fm_channels,), kernel_size=3,
-                              step=num_frames, dtype=dtype)
+        self.no_lstm = no_lstm
+        if no_lstm:
+            if num_frames > 16:
+                raise ValueError("the no_lstm path generates at most 16 frames")
+            fm_size = self.fm_h * self.fm_w * fm_channels
+            self.frame_seed_gen = FrameSeedGenerator(fm_size, fm_size)
+        else:
+            self.clstm = ConvLSTM(fm_channels, (fm_channels,), kernel_size=3,
+                                  step=num_frames, dtype=dtype)
         self.base = BaseFrameGen(fm_channels, dtype=dtype)
         self.render_base = RenderBlock(128, num_channels, dtype)
         self.num_blocks = 1 + len(additional_blocks)
@@ -106,10 +118,17 @@ class MultiScaleGen(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         b = x.shape[0]
-        # the fc's outputs are (fm_h, fm_w, C) in the JAX layout; NCHW after
-        x = self.fc(x).reshape(b, self.fm_h, self.fm_w, self.fm_channels)
-        x = self.clstm(x.permute(0, 3, 1, 2))            # (B, T, C, h, w)
+        # the fc's outputs (and the seeds) are (fm_h, fm_w, C) in the JAX
+        # layout; NCHW after
+        x = self.fc(x)
         num_frames = self.num_frames
+        if self.no_lstm:
+            x = self.frame_seed_gen(x)[:, :num_frames]    # (B, T, fm_size) float32
+            x = x.reshape(b, num_frames, self.fm_h, self.fm_w, self.fm_channels)
+            x = x.permute(0, 1, 4, 2, 3)                  # (B, T, C, h, w)
+        else:
+            x = x.reshape(b, self.fm_h, self.fm_w, self.fm_channels)
+            x = self.clstm(x.permute(0, 3, 1, 2))        # (B, T, C, h, w)
         x = x.reshape((-1,) + x.shape[2:])               # fold time into batch
 
         blocks = [self.base] + [getattr(self, f"up{i}") for i in range(self.num_blocks - 1)]

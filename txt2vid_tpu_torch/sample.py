@@ -27,16 +27,13 @@ from txt2vid_tpu_torch.utils.video import save_video_batch
 
 def main(args):
     """Writes the samples; returns the final scale's videos (N, T, H, W, C)."""
-    if args.M:
-        raise NotImplementedError("--M (the tcwyt sample mapping) comes in a later slice "
-                                  "of the port")
     _, device = setup(args)
     status(f"Restoring {args.weights}{' (EMA generator)' if args.ema else ''}")
     gan, vocab = load_checkpoint_gan(
         args.weights, args.G, args.D, sent=args.sent,
         vocab_path=None if args.dont_use_sent else args.vocab,
         frame_sizes=tuple(args.frame_sizes), num_frames=args.num_frames,
-        num_channels=args.num_channels, ema=args.ema)
+        num_channels=args.num_channels, ema=args.ema, M=args.M)
     gan.gen.to(device)
 
     cond, n = None, args.num_samples
@@ -67,7 +64,9 @@ def build_parser():
     p.add_argument("--weights", required=True)
     p.add_argument("--G", required=True)
     p.add_argument("--D", nargs="+", required=True)
-    p.add_argument("--M", default=None, help="not in the port yet (raises)")
+    p.add_argument("--M", default=None,
+                   help="the sample mapping the checkpoint was trained with (--M, e.g. "
+                        "TCWYT's FrameMap); only its variables are restored")
     p.add_argument("--sent", default=None)
     p.add_argument("--vocab", default=None)
     p.add_argument("--dont_use_sent", action="store_true")

@@ -28,6 +28,15 @@ stores the second moment in bf16 as well (ops/optim.py); --bf16_params runs
 every forward and backward of the step from one bf16 copy of the parameters
 (TrainConfig.compute_dtype). The checkpoints hold the moments in their
 storage dtype, as flax writes them, and restore across storage dtypes.
+
+Every model family the JAX CLI trains: TGANv2 (with or without its
+ConvLSTM, `no_lstm`), TCWYT with its three discriminators and the --M sample
+mapping (scripts/run.sh), TGAN, and the image GAN (scripts/run_tgan.sh:
+--img_model, whose batches are each clip's first frame, `video[:, 0]`,
+unless --data_is_imgs says the dataset yields images, as
+config/cifar10.json's does). --D_names name the discriminators and
+--D_lambdas weight their losses. M is built with the model kwargs, from the
+seed, and stays frozen; its variables are in the checkpoint (`m_vars`).
 """
 
 import argparse
@@ -51,7 +60,7 @@ from txt2vid_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_state
                                                 restore_txt_vars)
 
 # (flag, test of the parsed value): levers of the JAX CLI the port does not have
-# yet (--bf16, --bf16_nu and --bf16_params are ported)
+# yet
 UNPORTED = (
     ("--sgd", lambda a: a.sgd),
     ("--end2end", lambda a: a.end2end), ("--end2end_d_only", lambda a: a.end2end_d_only),
@@ -59,7 +68,6 @@ UNPORTED = (
     ("--fsdp", lambda a: a.fsdp > 1), ("--multihost", lambda a: a.multihost),
     ("--device_data", lambda a: a.device_data),
     ("--steps_per_dispatch", lambda a: a.steps_per_dispatch > 1),
-    ("--M", lambda a: a.M is not None), ("--img_model", lambda a: a.img_model),
 )
 
 
@@ -101,12 +109,21 @@ def device_batches(loader, device, depth: int):
         yield q.popleft()
 
 
+def first_frames(batches):
+    """--img_model on a video dataset: each clip's first frame as the image
+    (train/gan.py:197-200,301-305)."""
+    for b in batches:
+        yield dict(b, video=b["video"][:, 0])
+
+
 class LoaderAdapter:
-    def __init__(self, loader, device, depth):
+    def __init__(self, loader, device, depth, first_frame=False):
         self.loader, self.device, self.depth = loader, device, depth
+        self.first_frame = first_frame
 
     def __iter__(self):
-        return device_batches(self.loader, self.device, self.depth)
+        batches = self.loader if not self.first_frame else first_frames(self.loader)
+        return device_batches(batches, self.device, self.depth)
 
     def __len__(self):
         return len(self.loader)
@@ -136,10 +153,12 @@ def main(args):
         model_kwargs["dtype"] = torch.bfloat16
     gen = create_object(args.G, cond_dim=cond_dim, **model_kwargs)
     discrims = [create_object(d, cond_dim=cond_dim, **model_kwargs) for d in args.D]
-    for k, m in enumerate([gen, *discrims, txt_encoder]):
+    sample_mapping = create_object(args.M, **model_kwargs) if args.M else None
+    for k, m in enumerate([gen, *discrims, txt_encoder, sample_mapping]):
         if m is not None:
             init_from_seed(m, _seed(seed, k)).to(device)
-    gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas)
+    gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas,
+                  sample_mapping=sample_mapping, discrim_names=args.D_names)
 
     status("Using Adam")
     # --bf16 stores the first moment in bf16, --bf16_nu the second; the
@@ -169,6 +188,7 @@ def main(args):
         gp_quarantine=args.gp_quarantine,
         mean_discrim_loss=not args.no_mean_discrim_loss,
         mean_gen_loss=not args.no_mean_gen_loss,
+        img_model=args.img_model,
         latent_size=gen.latent_size,
         shared_gen_fwd=args.shared_gen_fwd,
         clip_grad=args.clip_grad or 0.0,
@@ -190,7 +210,7 @@ def main(args):
     ema = None
     if args.g_ema and args.weights:
         from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
-        ema = load_ema(args.weights, init_ema(gen))
+        ema = load_ema(args.weights, init_ema(gen), gen)
         if ema is not None:
             status(f"Restored generator EMA from {args.weights}.ema")
 
@@ -203,7 +223,8 @@ def main(args):
     status("GAN has %d parameters (~%.2f * 10^8)" % (n_params, n_params / 1e8))
     status(f"Dataset len= {len(loader) * args.batch_size} ({len(loader)} batches)")
 
-    dataset = LoaderAdapter(loader, device, args.prefetch)
+    dataset = LoaderAdapter(loader, device, args.prefetch,
+                            first_frame=args.img_model and not args.data_is_imgs)
     if args.test:
         trainer.test(gan=gan, num_samples=args.num_samples, dataset=dataset, params=args,
                      vocab=vocab, ema=ema)
@@ -259,7 +280,10 @@ def build_parser():
     parser.add_argument('--data', type=str, required=True)
     parser.add_argument('--anno', type=str, default=None)
     parser.add_argument('--vocab', type=str, default=None)
-    parser.add_argument('--M', type=str, default=None, help='not in the port yet (raises)')
+    parser.add_argument('--M', type=str, default=None,
+                        help='sample mapping (e.g. txt2vid_tpu.models.tcwyt.FrameMap): '
+                             'a frozen feature extractor whose features the '
+                             'discriminators read as xbar')
     parser.add_argument('--G', type=str, required=True)
     parser.add_argument('--D', type=str, nargs='+', required=True)
     parser.add_argument('--D_names', type=str, nargs='+', default=None)
