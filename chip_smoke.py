@@ -146,6 +146,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    txt_final byte for byte the encoding of the state in memory, and the
    training CLI's --sent_weights reader loads it into a fresh encoder that
    encodes alike. No attention kernel is on this path. Prints ms per step.
+11. levers (after bf16, before families): the training CLI's single-card
+   levers at full width, in four timed parts. (a) Phase cli's command line
+   on 40 synthetic clips (one batch of 40 per epoch) with --end2end
+   --gen_steps 2, with --end2end_d_only and with --sgd: 3 steps and
+   --resume for 1, every step finite at train_launches' counts (27/18/18,
+   18/13/13, 17/13/13), the encoder's moments nonzero in the optimizers
+   that hold it (its gradient through cuDNN's LSTM backward, the encoder in
+   training mode), 6 steps timed alone, and one --end2end --gen_steps 2 GP
+   step with the kernels against no_kernel() by phase cli's rule. (b) r9's
+   float32 command line with --device_data for 4 steps on phase cond128's
+   clips: the cache's bytes on the card, GP and plain ms beside phase
+   cond128's loader steps, one step on an assembled batch against the step
+   on host_batch of the same indices (losses 1e-4, G's Adam first moments
+   1e-3 of the leaf scale); then a cache of r3_queue14.sh's 8000 clips of
+   32x128x128x1 uint8 from --seed (4 194 304 000 bytes): its upload, assemble
+   at batch 32, the peak memory of one cond-128 GP step on it. (c) Phase
+   cli's command line on 160 clips, 2 epochs (8 steps) with
+   --steps_per_dispatch 4 against 1, cuDNN deterministic: the final states
+   bit for bit (else no further apart than a second k = 1 run, twice over),
+   the checkpoints at the iterations the JAX trainer's rule picks (save
+   period 6: 8 with k = 4, 6 and 8 with k = 1), the EMA once per chunk with
+   weight 1 - 0.999**4, and in the k = 4 run's profiler trace 2 host-to-
+   device copies of a chunk's video (31 457 280 bytes) and none of one
+   batch's. (d) utils.profiling.trace around one cond-128 GP and one plain
+   step: the top 10 device kernels of each and format_memory_stats().
 
 Each phase prints its seconds. The kernels line holds each kernel twice: its
 float32 instantiations (K1 at the serving shape, K2 and K3 at the training
@@ -159,7 +184,8 @@ a phase compare after it times them beside this one's at the same shapes, in
 float32 and bfloat16, in the order baseline, this, this, baseline.
 
 K1's float32 record also holds phase eval's launches and shapes
-("eval_launches", "eval_shapes").
+("eval_launches", "eval_shapes"); each float32 record holds phase levers'
+launches per run and per step ("levers_launches", "levers_launches_per_step").
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -256,21 +282,42 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NUM_CAPTIONS, BATCH = 20, 8
 
 
-def train_launches(scales, remat_g=False, remat_d=False):
+def train_launches(scales, remat_g=False, remat_d=False, gen_steps=1, end2end=False,
+                   txt_in_g=True):
     """Attention launches per train step with one generator attention and
-    the discriminator's at each of `scales` scales, counted from the code. K1:
-    1 (generator) + 2 * scales (D phase: real_cc and fake_cc; real_ic reuses
-    real_cc's features) + scales (the updated D's real predictions, no
-    gradient) + scales (the G phase's fake pass). K2 and K3: 2 * scales (the
-    D backward) + scales (through D to the fakes) + 1 (generator). The GP's
-    forward and double backward take the plain attention, so a GP step
-    launches what a plain one does. remat recomputes each wrapped block that
-    carries an attention and is differentiated in the backward: K1 once more
-    for the generator's (remat_g) and for each of the 3 * scales
-    discriminator calls with a gradient (remat_d)."""
-    fwd = 1 + 4 * scales + (1 if remat_g else 0) + (3 * scales if remat_d else 0)
-    return {"attention_fwd": fwd, "attention_bwd_dq": 1 + 3 * scales,
-            "attention_bwd_dkv": 1 + 3 * scales}
+    the discriminator's at each of `scales` scales, counted from the code.
+
+    The shared form (gen_steps 1 outside end2end). K1: 1 (generator) + 2 *
+    scales (D phase: real_cc and fake_cc; real_ic reuses real_cc's features)
+    + scales (the updated D's real predictions, no gradient) + scales (the G
+    phase's fake pass). K2 and K3: 2 * scales (the D backward) + scales
+    (through D to the fakes) + 1 (generator). The GP's forward and double
+    backward take the plain attention, so a GP step launches what a plain one
+    does. remat recomputes each wrapped block that carries an attention and
+    is differentiated in the backward: K1 once more for the generator's
+    (remat_g) and for each of the 3 * scales discriminator calls with a
+    gradient (remat_d).
+
+    The two-forward form (gen_steps g > 1, or end2end). K1: 1 (the D phase's
+    fakes, no gradient) + 2 * scales (D phase) + scales (the real
+    predictions, once, without gradient) + g * (1 + scales) (each G
+    sub-step's generator and fake pass), and with remat_g once more per
+    sub-step. Under end2end with the encoder in G's optimizer (txt_in_g) the
+    real predictions move into each sub-step: 1 + 2 * scales + g * (1 + 2 *
+    scales); their backward reaches the encoder through the cond alone, so
+    no attention backward runs for them. K2 and K3: 2 * scales + g * (1 +
+    scales). At the 64-px flagship (4 scales): --end2end --gen_steps 2 27 and
+    18, --end2end_d_only 18 and 13."""
+    if gen_steps == 1 and not end2end:
+        fwd = 1 + 4 * scales + (1 if remat_g else 0) + (3 * scales if remat_d else 0)
+        return {"attention_fwd": fwd, "attention_bwd_dq": 1 + 3 * scales,
+                "attention_bwd_dkv": 1 + 3 * scales}
+    check(not remat_d, "train_launches counts the two-forward form without remat in D")
+    preds_per_sub = end2end and txt_in_g
+    fwd = (1 + 2 * scales + (0 if preds_per_sub else scales)
+           + gen_steps * (1 + scales + (scales if preds_per_sub else 0) + (1 if remat_g else 0)))
+    bwd = 2 * scales + gen_steps * (1 + scales)
+    return {"attention_fwd": fwd, "attention_bwd_dq": bwd, "attention_bwd_dkv": bwd}
 
 
 # the 64-px flagship: 4 scales, no remat (17, 13, 13)
@@ -1530,9 +1577,9 @@ def _phase_cond128(root, seed):
 
     compare_kernel_and_plain_cli_step(step, batch, phase="cond128")
     cond128_memory(step, batch)
-    time_cli_steps(step, batch, n=6, phase="cond128")
+    step_ms = time_cli_steps(step, batch, n=6, phase="cond128")
     serve = cond128_serve(root, latest, seed)
-    return {"launches": totals, "per_step": want, "serve_launches": serve}
+    return {"launches": totals, "per_step": want, "serve_launches": serve, "step_ms": step_ms}
 
 
 def cond128_memory(step, batch):
@@ -2716,6 +2763,343 @@ def phase_eval(seed, cli_root, cond_root):
     return {"launches": launches, "shapes": sorted(chk.shapes)}
 
 
+# phase levers: the training CLI's single-card levers at full width. Part a
+# trains on LEVERS_E2E_CLIPS clips (one batch of bench.BATCH per epoch, so
+# --epochs gives the steps), part c on all LEVERS_CLIPS (four batches per
+# epoch, one chunk of --steps_per_dispatch 4)
+LEVERS_CLIPS, LEVERS_E2E_CLIPS, LEVERS_STEPS = 160, 40, 3
+LEVERS_RUNS = {
+    "end2end_gen2": (("--end2end", "--gen_steps", "2"),
+                     train_launches(4, gen_steps=2, end2end=True)),
+    "end2end_d_only": (("--end2end_d_only",),
+                       train_launches(4, end2end=True, txt_in_g=False)),
+    "sgd": (("--sgd",), TRAIN_LAUNCHES),
+}
+# r3_queue14.sh's resident data set: 8000 clips of 32x128x128x1 uint8
+BIG_CACHE = (8000, 32, 128, 128, 1)
+DISPATCH_K, DISPATCH_EPOCHS, DISPATCH_SAVE = 4, 2, 6
+
+
+def levers_argv(root, seed, out, anno, *extra):
+    """Phase cli's command line on the levers' clips, `anno` their captions."""
+    argv = cli_argv(root, seed, *extra)
+    argv[argv.index("--anno") + 1] = str(root / anno)
+    argv[argv.index("--out") + 1] = str(out)
+    argv[argv.index("--out_samples") + 1] = str(out / "samples")
+    return argv
+
+
+def levers_data(root, seed):
+    t0 = time.perf_counter()
+    sents = generate_examples(root / "videos", root / "sent.pickle", num_examples=LEVERS_CLIPS,
+                              frame_size=(64, 64), num_frames=16, seed=seed + 1,
+                              num_channels=3)
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab([c for v in sents.values() for c in v]), f)
+    with open(root / "sent_e2e.pickle", "wb") as f:
+        pickle.dump(dict(list(sents.items())[:LEVERS_E2E_CLIPS]), f)
+    print(f"phase levers: {LEVERS_CLIPS} clips of 16x64x64x3 in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def levers_end2end_sgd(root, seed):
+    """Part a: --end2end --gen_steps 2, --end2end_d_only and --sgd, each
+    LEVERS_STEPS steps and --resume for one, every step finite at the
+    launches train_launches gives; the encoder's gradient reached through
+    cuDNN's LSTM backward; steps timed alone; one --end2end --gen_steps 2
+    step with the kernels against no_kernel() (compare_kernel_and_plain_cli_step's
+    rule). Returns each run's launches and step ms."""
+    out = {}
+    for name, (flags, want) in LEVERS_RUNS.items():
+        t0 = time.perf_counter()
+        argv = levers_argv(root, seed, root / name, "sent_e2e.pickle", *flags)
+        rec = run_cli(argv + ["--epochs", str(LEVERS_STEPS)], "levers", want, torch.float32)
+        launches = counts()
+        check(len(rec.steps) == LEVERS_STEPS, f"{name}: {len(rec.steps)} steps run")
+        res = run_cli(argv + ["--epochs", "1", "--resume"], "levers", want, torch.float32)
+        check([r["iteration"] for r in res.steps] == [LEVERS_STEPS],
+              f"{name}: --resume ran {[r['iteration'] for r in res.steps]}")
+        step = res.step
+        if name.startswith("end2end"):
+            txt = step.txt_params
+            in_g = name == "end2end_gen2"
+            check(step.gan.cond_encoder.training, f"{name}: the encoder is not in training mode")
+            for opt, want_in in ((step.opt_d, True), (step.opt_g, in_g)):
+                moved = [float(opt.state[p]["exp_avg"].abs().max()) > 0
+                         for p in txt if p in opt.state]
+                check(len(moved) == (len(txt) if want_in else 0)
+                      and (not want_in or sum(moved) >= len(txt) - 2),
+                      f"{name}: the encoder's moments in the optimizers: {len(moved)} held, "
+                      f"{sum(moved)} nonzero of {len(txt)}")
+            print(f"phase levers: {name}: the encoder's gradient reached "
+                  f"{'both optimizers' if in_g else 'the D optimizer'} through cuDNN's "
+                  f"LSTM backward")
+        else:
+            check(isinstance(step.opt_g, torch.optim.SGD), f"{name}: G's optimizer is "
+                  f"{type(step.opt_g).__name__}")
+        if name == "end2end_gen2":
+            compare_kernel_and_plain_cli_step(step, res.batch, phase="levers")
+        gp_ms, plain_ms = time_cli_steps(step, res.batch, n=6, phase=f"levers {name}")
+        out[name] = {"launches": launches, "per_step": want, "gp_ms": gp_ms,
+                     "plain_ms": plain_ms}
+        print(f"phase levers: {name}: {time.perf_counter() - t0:.2f} s, launches per step "
+              f"{want}")
+    return out
+
+
+def levers_device_data(seed, cond_root, cond_ms):
+    """Part b: r9's float32 command line with --device_data on phase cond128's
+    packed clips (4 steps), the cache's bytes on the card, steps timed beside
+    phase cond128's host-loader ones, one step on an assembled batch against
+    the step on host_batch of the same indices; then a cache of BIG_CACHE
+    clips from --seed: its upload, assemble at batch 32, and the peak memory
+    of one cond-128 GP step on it."""
+    from txt2vid_tpu_torch.data import device_cache
+    pairs = sum(len(v) for v in load_pickle(cond_root / "sent.pickle").values())
+    epochs = -(-4 // max(pairs // COND128_BATCH, 1))
+    argv = cond128_argv(cond_root, seed, out=cond_root / "levers_out")
+    argv[argv.index("--epochs") + 1] = str(epochs)
+    made = []
+    from_dataset = device_cache.DeviceVideoData.from_dataset.__func__
+    device_cache.DeviceVideoData.from_dataset = classmethod(
+        lambda cls, *a, **k: made.append(from_dataset(cls, *a, **k)) or made[-1])
+    want = train_launches(COND128_SCALES, remat_g=True)
+    try:
+        rec = run_cli(argv + ["--device_data"], "levers", want, torch.float32)
+    finally:
+        device_cache.DeviceVideoData.from_dataset = classmethod(from_dataset)
+    launches = counts()
+    (data,) = made
+    check(len(rec.steps) == epochs * max(pairs // COND128_BATCH, 1), "device data steps")
+    cap = data.captions.size * 8
+    check(data.nbytes == data.videos.nbytes + 8 * data.num_pairs + cap,
+          f"device cache bytes {data.nbytes}")
+    check(data.device_arrays()["videos"].is_cuda, "the cache is not on the card")
+    print(f"phase levers: device data: {data.num_pairs} pairs, {data.nbytes} bytes on the "
+          f"card (clips {data.videos.nbytes}), {len(rec.steps)} steps at launches {want}")
+    step = rec.step
+    wrapped = device_cache.DeviceDataStep(step, data, COND128_BATCH, seed=seed)
+    gp_ms, plain_ms = time_cli_steps(wrapped, {}, n=6, phase="levers device data")
+    print(f"phase levers: device data GP / plain step {gp_ms:.2f} / {plain_ms:.2f} ms, "
+          f"phase cond128's host loader {cond_ms[0]:.2f} / {cond_ms[1]:.2f} ms")
+
+    # the same step on the assembled batch and on host_batch of its indices
+    start = StateSnapshot(step)
+    idx, phase = data.draw(seed, step.step, COND128_BATCH)
+    runs = []
+    for batch in (data.assemble(idx, phase),
+                  next(train_gan.device_batches([data.host_batch(idx.numpy())],
+                                                torch.device("cuda"), 0))):
+        start.restore(step)
+        m = {k: float(v) for k, v in step(batch).items()}
+        runs.append((m, {n: step.opt_g.state[p]["exp_avg"].double().clone()
+                         for n, p in step.gan.gen.named_parameters()}))
+    start.restore(step)
+    loss_err = max(abs(runs[0][0][k] - runs[1][0][k]) / abs(runs[1][0][k])
+                   for k in ("loss_d", "loss_g"))
+    scales = leaf_scales(runs[1][1])
+    mom_err = max(float((runs[0][1][n] - r).abs().max()) / scales[n]
+                  for n, r in runs[1][1].items())
+    print(f"phase levers: a step on the assembled batch vs host_batch of the same indices: "
+          f"losses rel diff {loss_err:.3g} (tol 1e-4), G's Adam first moments max|diff| / "
+          f"leaf scale {mom_err:.3g} (tol 1e-3)")
+    check(loss_err <= 1e-4 and mom_err <= 1e-3, "the device-data step disagrees")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    n = BIG_CACHE[0]
+    vocab_len = len(load_pickle(cond_root / "vocab.pickle"))
+    lens = rng.integers(3, 33, n).astype(np.int32)
+    caps = rng.integers(1, vocab_len, (n, 32)).astype(np.int32)
+    caps[np.arange(32)[None, :] >= lens[:, None]] = 0
+    big = device_cache.DeviceVideoData(rng.integers(0, 256, BIG_CACHE, dtype=np.uint8),
+                                       np.arange(n), caps, lens, num_frames=BIG_CACHE[1])
+    made_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.device_arrays(torch.device("cuda"))
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    check(big.videos.nbytes == 4_194_304_000, f"the large cache holds {big.videos.nbytes}")
+    idx, _ = big.draw(seed, 0, COND128_BATCH)
+    asm_ms = cuda_ms(lambda: big.assemble(idx, 0))
+    big_step = device_cache.DeviceDataStep(step, big, COND128_BATCH, seed=seed)
+    while step.step % step.config.gp_every:
+        step.step += 1
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = float(big_step({})["loss_d"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss), f"the GP step on the large cache: loss_d {loss}")
+    print(f"phase levers: a {BIG_CACHE} uint8 cache ({big.videos.nbytes} bytes) made in "
+          f"{made_s:.2f} s and uploaded in {up_s:.2f} s ({big.nbytes} bytes on the card); "
+          f"assemble at batch {COND128_BATCH}: {asm_ms:.4f} ms; one cond-128 GP step on it: "
+          f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB; {held / 2**30:.3f} GiB held "
+          f"before it)")
+    big_bytes = big.nbytes
+    del big, big_step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": want, "bytes": data.nbytes, "gp_ms": gp_ms,
+            "plain_ms": plain_ms, "big_bytes": big_bytes, "assemble_ms": asm_ms,
+            "big_peak": peak, "step": step,
+            "batch": data.assemble(*data.draw(seed, 0, COND128_BATCH))}
+
+
+def chunk_saves(iterations, period, k):
+    """The iterations the JAX trainer saves at (trainer.py:446-478): chunk
+    ends with iteration % period < k, from `period` on, and the last."""
+    out = [it for it in iterations if it % period < k and it >= period]
+    return out + ([iterations[-1]] if iterations[-1] % period else [])
+
+
+def levers_dispatch(root, seed):
+    """Part c: phase cli's command line on LEVERS_CLIPS clips for
+    DISPATCH_EPOCHS epochs with --steps_per_dispatch DISPATCH_K, against k =
+    1 on the same batches, cuDNN held to deterministic algorithms: the final
+    states bit for bit (or no further apart than a second k = 1 run from the
+    first, twice over); the checkpoints at the iterations the JAX trainer
+    picks; the EMA updated once per chunk with weight 1 - decay**k; one copy
+    of the video per chunk, counted in the k-step run's profiler trace."""
+    from txt2vid_tpu_torch.utils import profiling
+    make_update = ema_mod.make_ema_update
+    updates = []
+
+    def recording(decay, k=1):
+        update = make_update(decay, k)
+
+        def run(avg, gen):
+            name = next(iter(avg))
+            before = avg[name].clone()
+            out = update(avg, gen)
+            param = dict(gen.named_parameters())[name].detach()
+            want = before + (1 - decay ** k) * (param - before)
+            updates.append((k, float((out[name] - want).abs().max())
+                            / max(1.0, float(want.abs().max()))))
+            return out
+        return run
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ema_mod.make_ema_update = recording
+    states, saved = {}, {}
+    n_steps = DISPATCH_EPOCHS * LEVERS_CLIPS // bench.BATCH
+    try:
+        for label, k in (("k1", 1), (f"k{DISPATCH_K}", DISPATCH_K)):
+            out = root / f"dispatch_{label}"
+            argv = levers_argv(root, seed, out, "sent.pickle", "--epochs",
+                               str(DISPATCH_EPOCHS), "--save_model_period",
+                               str(DISPATCH_SAVE), "--steps_per_dispatch", str(k))
+            updates.clear()
+            t0 = time.perf_counter()
+            if k > 1:
+                with profiling.trace(str(root / "trace")):
+                    rec = run_cli(argv, "levers", TRAIN_LAUNCHES, torch.float32)
+            else:
+                rec = run_cli(argv, "levers", TRAIN_LAUNCHES, torch.float32)
+            run_s = time.perf_counter() - t0
+            check(len(rec.steps) == n_steps, f"{label}: {len(rec.steps)} steps")
+            states[label] = checkpoint.to_host(torch_state_to_jax(rec.step))
+            saved[label] = sorted(int(p.name.split("_")[1]) for p in out.glob("iter_*")
+                                  if p.suffix != ".ema")
+            its = list(range(k, n_steps + 1, k))
+            check(saved[label] == sorted(set(chunk_saves(its, DISPATCH_SAVE, k))),
+                  f"{label}: checkpoints at {saved[label]}, the JAX trainer's rule gives "
+                  f"{chunk_saves(its, DISPATCH_SAVE, k)}")
+            check(len(updates) == n_steps // k and all(u[0] == k for u in updates)
+                  and max(u[1] for u in updates) <= 1e-6,
+                  f"{label}: EMA updates {updates}")
+            print(f"phase levers: {label}: {n_steps} steps in {run_s:.2f} s, checkpoints at "
+                  f"{saved[label]}, {len(updates)} EMA updates of weight 1 - 0.999**{k} "
+                  f"(max|diff| / max(1, max|value|) {max(u[1] for u in updates):.3g}, tol "
+                  f"1e-6)")
+        fa, fb = dict(_flat(states["k1"])), dict(_flat(states[f"k{DISPATCH_K}"]))
+        diff = max(float(np.abs(fa[n].astype(np.float64) - fb[n]).max()) for n in fa
+                   if fa[n].dtype.kind == "f")
+        spread = None
+        if diff:
+            out = root / "dispatch_k1_again"
+            rec = run_cli(levers_argv(root, seed, out, "sent.pickle", "--epochs",
+                                      str(DISPATCH_EPOCHS)), "levers", TRAIN_LAUNCHES,
+                          torch.float32)
+            fc = dict(_flat(checkpoint.to_host(torch_state_to_jax(rec.step))))
+            spread = max(float(np.abs(fa[n].astype(np.float64) - fc[n]).max()) for n in fa
+                         if fa[n].dtype.kind == "f")
+        print(f"phase levers: k = {DISPATCH_K} against k = 1 after {n_steps} steps: "
+              f"max|diff| {diff:.3g} over the state's leaves"
+              + (f", a second k = 1 run {spread:.3g} from the first (tol 2x)" if diff else
+                 " (bit for bit)"))
+        check(diff == 0 or diff <= 2 * spread, "k-step dispatch strays from single steps")
+    finally:
+        ema_mod.make_ema_update = make_update
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+    (trace,) = (root / "trace").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    video = bench.BATCH * 16 * 64 * 64 * 3
+    sizes = [int(e.get("args", {}).get("bytes", -1)) for e in copies]
+    n_chunks = n_steps // DISPATCH_K
+    print(f"phase levers: the k = {DISPATCH_K} run's trace ({trace.stat().st_size} bytes): "
+          f"{len(copies)} host-to-device copies, {sizes.count(DISPATCH_K * video)} of a "
+          f"chunk's video ({DISPATCH_K * video} bytes), {sizes.count(video)} of one batch's")
+    check(sizes.count(DISPATCH_K * video) == n_chunks and not sizes.count(video),
+          f"copies of the video: {sizes}")
+    return {"launches_k": counts(), "saved": saved, "diff": diff}
+
+
+def levers_profile(step, batch):
+    """Part d: utils.profiling.trace around one cond-128 GP step and one plain
+    step: the top 10 device kernels of each, and format_memory_stats()."""
+    from torch.autograd import DeviceType
+    from txt2vid_tpu_torch.utils import profiling
+    out = {}
+    for gp in (True, False):
+        while (step.step % step.config.gp_every == 0) != gp:
+            step.step += 1
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d) as prof:
+                with profiling.step_annotation("cond128", step.step):
+                    float(step(batch)["loss_d"])
+            check(len(list(Path(d).glob("*.pt.trace.json"))) == 1, "no trace written")
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)),
+                         key=lambda e: e.self_device_time_total, reverse=True)
+        total = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = [(e.key, e.count, e.self_device_time_total / 1e3) for e in kernels[:10]]
+        kind = "GP" if gp else "plain"
+        print(f"phase levers: cond-128 {kind} step profiled: {total:.2f} device ms; top 10 "
+              f"kernels (launches, ms): " + "; ".join(f"{k[:70]} ({c}, {ms:.2f})"
+                                                       for k, c, ms in top))
+        out[kind] = {"device_ms": total, "top": top}
+    print(f"phase levers: {profiling.format_memory_stats()}")
+    check(profiling.device_memory_stats(), "no device memory statistics on the card")
+    return out
+
+
+def phase_levers(seed, cond_root, cond_ms):
+    """The training CLI's single-card levers (parts a-d, each timed); the
+    clips of parts a and c in a directory of their own, removed after."""
+    root = smoke_dir("levers_smoke_")
+    out = {}
+    try:
+        levers_data(root, seed)
+        for part, fn, args in (("a", levers_end2end_sgd, (root, seed)),
+                               ("b", levers_device_data, (seed, cond_root, cond_ms)),
+                               ("c", levers_dispatch, (root, seed))):
+            t0 = time.perf_counter()
+            out[part] = fn(*args)
+            print(f"phase levers: part {part}: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        out["d"] = levers_profile(out["b"].pop("step"), out["b"].pop("batch"))
+        print(f"phase levers: part d: {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2756,6 +3140,7 @@ def main():
         evaluation = timed("eval", phase_eval, args.seed, cli_root, cond_root)
         shutil.rmtree(cli_root, ignore_errors=True)
         bf16 = timed("bf16", phase_bf16, args.seed, cond_root, cli_ms, serve_ms, f32_bench)
+        levers = timed("levers", phase_levers, args.seed, cond_root, cond["step_ms"])
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
         shutil.rmtree(cond_root, ignore_errors=True)
@@ -2775,6 +3160,17 @@ def main():
         r["no_lstm_launches"] = families["launches"][r["name"]]
         r["no_lstm_launches_per_step"] = NO_LSTM_LAUNCHES[r["name"]]
     records[0]["cond128_serve_launches"] = cond["serve_launches"]
+    # phase levers: each run's launches (its 3 steps, or 4 for device data
+    # and 8 for the k-step dispatch) and per step
+    for r in records:
+        r["levers_launches"] = {
+            **{run: v["launches"][r["name"]] for run, v in levers["a"].items()},
+            "device_data": levers["b"]["launches"][r["name"]],
+            "steps_per_dispatch": levers["c"]["launches_k"][r["name"]]}
+        r["levers_launches_per_step"] = {
+            **{run: v["per_step"][r["name"]] for run, v in levers["a"].items()},
+            "device_data": levers["b"]["per_step"][r["name"]],
+            "steps_per_dispatch": TRAIN_LAUNCHES[r["name"]]}
     # the evaluation CLIs' sampling and discriminator features (phase eval)
     records[0]["eval_launches"] = evaluation["launches"]
     records[0]["eval_shapes"] = evaluation["shapes"]

@@ -163,14 +163,68 @@ def test_nan_abort_exits_42_and_keeps_the_last_good_checkpoint(data, tmp_path, m
     assert all(np.isfinite(a).all() for a in leaves(raw) if a.dtype.kind == "f")
 
 
-@pytest.mark.parametrize("flag", [
-    ["--sgd"], ["--end2end"],
-    ["--end2end_d_only"], ["--gen_steps", "2"], ["--sp", "2"], ["--fsdp", "2"],
-    ["--multihost"], ["--device_data"], ["--steps_per_dispatch", "2"],
-    ["--gen_steps", "3"], ["--steps_per_dispatch", "4"]])
+@pytest.mark.parametrize("flag", [["--sp", "2"], ["--fsdp", "2"], ["--multihost"]])
 def test_unported_flags_raise_naming_themselves(data, tmp_path, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         gan.cli(argv(data, tmp_path, *flag))
+
+
+def packed_spec(data):
+    """The clips of `data` packed into one T2VC file, as a --data spec."""
+    from txt2vid_tpu_torch.data import packed
+    path = data / "clips.t2vc"
+    if not path.exists():
+        packed.pack_directory(data / "videos", path)
+    return json.dumps({"class": "txt2vid_tpu.data.packed.packed_dataset",
+                       "args": {"data": str(path), "num_frames": 4}})
+
+
+@pytest.mark.parametrize("flag", [
+    ["--sgd"], ["--end2end"], ["--end2end_d_only"], ["--gen_steps", "2"],
+    ["--device_data"], ["--steps_per_dispatch", "2"], ["--gen_steps", "3"],
+    ["--steps_per_dispatch", "4"]])
+def test_ported_flags_train(data, tmp_path, monkeypatch, flag):
+    """Each single-card lever of the JAX CLI trains on the CPU: one epoch of
+    two batches of 8 (--steps_per_dispatch 4: one chunk of four batches of
+    4; --device_data: two steps on the packed clips, assembled from the
+    device cache), finite losses, and its mark on the final checkpoint:
+    --sgd's trace, end2end's "txt" moments (in both optimizers, or D's alone)
+    and a moved encoder, gen_steps N updates of G per step."""
+    from flax import serialization
+    made, start = [], []
+    orig = gan.build_train_step
+
+    def build(gan_, *a, **kw):
+        start.append(gan_.cond_encoder.encoder.embed.weight.detach().clone())
+        made.append(orig(gan_, *a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(gan, "build_train_step", build)
+    name, k = flag[0], int(flag[1]) if len(flag) > 1 else 1
+    batch = 4 if flag == ["--steps_per_dispatch", "4"] else 8
+    args = argv(data, tmp_path, "--epochs", "1", "--batch_size", str(batch), *flag)
+    if name == "--device_data":
+        args[args.index("--data") + 1] = packed_spec(data)
+    logged = []
+    monkeypatch.setattr(trainer, "status", lambda msg: logged.append(msg))
+    gan.cli(args)
+    (step,) = made
+    steps = 4 if batch == 4 else 2
+    assert step.step == steps and _iters(tmp_path) == [steps]
+    losses = [m for m in logged if "Loss_D" in m]
+    assert losses and all("nan" not in m and "inf" not in m for m in losses)
+    with open(checkpoint.latest_checkpoint(tmp_path), "rb") as f:
+        raw = serialization.msgpack_restore(f.read())
+    opt_g, opt_d = raw["opt_g_state"]["0"], raw["opt_d_state"]["0"]
+    if name == "--sgd":
+        assert isinstance(step.opt_g, torch.optim.SGD) and set(opt_g) == {"trace"}
+        assert np.abs(opt_d["trace"]["d"]["0"]["discrim"]["fc"]["kernel"]).max() > 0
+        return
+    assert int(opt_d["count"]) == steps
+    assert int(opt_g["count"]) == steps * (k if name == "--gen_steps" else 1)
+    e2e = name.startswith("--end2end")
+    assert ("txt" in opt_d["mu"]) == e2e and ("txt" in opt_g["mu"]) == (name == "--end2end")
+    assert torch.equal(step.gan.cond_encoder.encoder.embed.weight.detach(), start[0]) != e2e
 
 
 @pytest.mark.parametrize("flag", [["--bf16"], ["--bf16_nu"], ["--bf16_params"]])

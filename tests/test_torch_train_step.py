@@ -347,19 +347,13 @@ def test_step_went_through_the_attention_function(steps):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("end2end", True), ("gen_steps", 2)])
-def test_unported_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        check_config(TrainConfig(**{field: value}))
-
-
-@pytest.mark.parametrize("field,value", [
     ("gp_lambda", 10.0), ("gp_every", 4), ("gp_quarantine", True), ("clip_grad", 1.0),
-    ("discrim_steps", 2), ("img_model", True)])
+    ("discrim_steps", 2), ("img_model", True), ("end2end", True), ("gen_steps", 2)])
 def test_ported_fields_accepted(field, value):
     """The regularization fields the training CLI's slice ported
-    (tests/test_torch_gp_step.py holds them to the JAX step) and img_model
-    (tests/test_torch_families_step.py)."""
+    (tests/test_torch_gp_step.py holds them to the JAX step), img_model
+    (tests/test_torch_families_step.py), end2end and gen_steps
+    (tests/test_torch_end2end.py)."""
     check_config(TrainConfig(**{field: value}))
 
 

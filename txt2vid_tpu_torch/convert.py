@@ -45,7 +45,11 @@ batch_stats} or None, and each optimizer's optax.adam state
 {"0": {count, mu, nu}, "1": {}} (ScaleByAdamState, EmptyState), with `mu` and
 `nu` trees {"g": params} and {"d": {"0": params, ...}}. They map onto torch
 Adam's `exp_avg` / `exp_avg_sq` with the parameters' transposes and `count`
-onto `step`. BatchNorm's `num_batches_tracked` has no counterpart.
+onto `step`. Under --sgd the state is optax.sgd's {"0": {"trace"}, "1": {}}
+(TraceState, EmptyState), the trace onto torch SGD's `momentum_buffer`.
+Under end2end the trees are {"g", "txt"} and {"d", "txt"} ({"g"} alone with
+end2end_d_only), "txt" the encoder's params tree. BatchNorm's
+`num_batches_tracked` has no counterpart.
 """
 
 import re
@@ -423,11 +427,12 @@ def load_module_vars(module, variables) -> None:
 
 def _adam_moments(opt, named_params, key):
     """name -> the optimizer's `key` moment in its storage dtype (zeros before
-    the first step) and the step count (0 before it)."""
+    the first step, and for a parameter outside the optimizer) and the step
+    count (0 before it)."""
     out, count = {}, 0
     for name, p in named_params:
         st = opt.state.get(p, {})
-        out[name] = (st[key] if key in st
+        out[name] = (st[key] if st.get(key) is not None
                      else torch.zeros_like(p, dtype=_storage_dtype(opt, p, key)))
         if "step" in st:
             count = int(st["step"])
@@ -435,6 +440,12 @@ def _adam_moments(opt, named_params, key):
 
 
 def _adam_tree(opt, named_params, wrap):
+    """optax's state of `opt`: adam's {"0": {count, mu, nu}, "1": {}}, or for
+    torch's SGD optax.sgd's {"0": {"trace"}, "1": {}} (TraceState,
+    EmptyState), the momentum buffer as the trace."""
+    if isinstance(opt, torch.optim.SGD):
+        return {"0": {"trace": wrap(_adam_moments(opt, named_params, "momentum_buffer")[0])},
+                "1": {}}
     mu, count = _adam_moments(opt, named_params, "exp_avg")
     nu, _ = _adam_moments(opt, named_params, "exp_avg_sq")
     return {"0": {"count": np.array(count, np.int32), "mu": wrap(mu), "nu": wrap(nu)},
@@ -445,20 +456,43 @@ def _encoder_tree(enc):
     return {"params": torch_to_jax_encoder(enc.state_dict())}
 
 
+def _end2end(step) -> tuple[bool, bool]:
+    """Whether the encoder is in (the G optimizer, the D optimizer): end2end
+    puts it in both, end2end_d_only in D's alone (train_step.py:266-271)."""
+    if not step.txt_params:
+        return False, False
+    return bool(step.config.end2end_txt_in_g), True
+
+
 def torch_state_to_jax(step) -> dict:
     """The GanTrainState tree of a port TrainStep (its gan's modules, the
     sample mapping's variables, both optimizers and its step counter), leaves
-    as tensors in the JAX layout."""
+    as tensors in the JAX layout. Under end2end an optimizer's trees hold the
+    encoder's moments as a "txt" subtree beside "g" or "d"."""
     gan = step.gan
     d_named = [list(d.named_parameters()) for d in gan.discrims]
     g_named = list(gan.gen.named_parameters())
+    txt_g, txt_d = _end2end(step)
+    # the encoder's whole state dict: bias_ih, outside the optimizers, has
+    # zero moments, which torch_to_jax_encoder adds to bias_hh's
+    txt_named = ([(f"txt.{n}", p) for n, p in
+                  gan.cond_encoder.state_dict(keep_vars=True).items()]
+                 if txt_d else [])
+
+    def with_txt(tree, moments, on):
+        if on:
+            tree["txt"] = torch_to_jax_encoder({n[4:]: moments[n] for n, _ in txt_named})
+        return tree
 
     def wrap_g(moments):
-        return {"g": vars_to_jax(gan.gen, moments)[0]}
+        return with_txt({"g": vars_to_jax(gan.gen, {n: moments[n] for n, _ in g_named})[0]},
+                        moments, txt_g)
 
     def wrap_d(moments):
-        return {"d": {str(k): vars_to_jax(d, {n: moments[f"{k}.{n}"] for n, _ in named})[0]
-                      for k, (d, named) in enumerate(zip(gan.discrims, d_named))}}
+        return with_txt(
+            {"d": {str(k): vars_to_jax(d, {n: moments[f"{k}.{n}"] for n, _ in named})[0]
+                   for k, (d, named) in enumerate(zip(gan.discrims, d_named))}},
+            moments, txt_d)
 
     d_flat = [(f"{k}.{n}", p) for k, named in enumerate(d_named) for n, p in named]
     mapping = gan.sample_mapping
@@ -468,24 +502,33 @@ def torch_state_to_jax(step) -> dict:
         "d_vars": {str(k): module_vars(d) for k, d in enumerate(gan.discrims)},
         "txt_vars": None if gan.cond_encoder is None else _encoder_tree(gan.cond_encoder),
         "m_vars": None if mapping is None else module_vars(mapping),
-        "opt_g_state": _adam_tree(step.opt_g, g_named, wrap_g),
-        "opt_d_state": _adam_tree(step.opt_d, d_flat, wrap_d),
+        "opt_g_state": _adam_tree(step.opt_g, g_named + (txt_named if txt_g else []),
+                                  wrap_g),
+        "opt_d_state": _adam_tree(step.opt_d, d_flat + txt_named, wrap_d),
     }
 
 
 def _storage_dtype(opt, p, key):
     """The dtype the optimizer stores moment `key` of `p` in: the parameter's
-    for torch's Adam, the storage dtype for ops.optim.AdamStorage."""
+    for torch's Adam and SGD, the storage dtype for ops.optim.AdamStorage (of
+    the first group for a parameter outside the optimizer)."""
     storage = getattr(opt, "storage_dtype", None)
     if storage is None:
         return p.dtype
-    group = next(g for g in opt.param_groups if any(q is p for q in g["params"]))
+    group = next((g for g in opt.param_groups if any(q is p for q in g["params"])),
+                 opt.param_groups[0])
     return storage(group, p, key)
 
 
 def _load_adam(opt, named_params, tree, unwrap):
-    """Set each parameter's Adam state from an optax adam state tree, each
-    moment rounded to the dtype the optimizer stores it in."""
+    """Set each parameter's optimizer state from an optax state tree: adam's
+    moments, each rounded to the dtype the optimizer stores it in, or for
+    torch's SGD sgd's trace as the momentum buffer."""
+    if isinstance(opt, torch.optim.SGD):
+        trace = unwrap(tree["0"]["trace"])
+        for name, p in named_params:
+            opt.state[p] = {"momentum_buffer": trace[name].to(p.device, p.dtype).contiguous()}
+        return
     adam = tree["0"]
     count = int(np.asarray(adam["count"]))
     mu, nu = unwrap(adam["mu"]), unwrap(adam["nu"])
@@ -531,17 +574,27 @@ def jax_state_to_torch(tree, step) -> None:
     if gan.cond_encoder is not None and tree.get("txt_vars") is not None:
         with torch.no_grad():
             load_encoder_vars(gan.cond_encoder, tree["txt_vars"])
-    _load_adam(step.opt_g, list(gan.gen.named_parameters()), tree["opt_g_state"],
-               lambda t: _param_tensors(gan.gen, t["g"]))
+    txt_g, txt_d = _end2end(step)
+    txt_named = ([(f"txt.{n}", p) for n, p in gan.cond_encoder.named_parameters()
+                  if p.requires_grad] if txt_d else [])
+
+    def with_txt(out, t, on):
+        if on:
+            out.update({f"txt.{n}": v for n, v in jax_to_torch_encoder(t["txt"]).items()})
+        return out
+
+    _load_adam(step.opt_g, list(gan.gen.named_parameters()) + (txt_named if txt_g else []),
+               tree["opt_g_state"],
+               lambda t: with_txt(_param_tensors(gan.gen, t["g"]), t, txt_g))
 
     def unwrap_d(t):
         out = {}
         for k, d in enumerate(gan.discrims):
             out.update({f"{k}.{n}": v for n, v in _param_tensors(d, t["d"][str(k)]).items()})
-        return out
+        return with_txt(out, t, txt_d)
 
     _load_adam(step.opt_d, [(f"{k}.{n}", p) for k, d in enumerate(gan.discrims)
-                            for n, p in d.named_parameters()],
+                            for n, p in d.named_parameters()] + txt_named,
                tree["opt_d_state"], unwrap_d)
     step.step = int(np.asarray(tree["step"]))
 

@@ -7,6 +7,10 @@ after it with one fused lerp, ema += (1 - decay) * (params - ema). It is saved
 beside each checkpoint as ``<checkpoint>.ema``, a msgpack file of the
 generator's flax params tree, so either package reads the other's; a
 checkpoint without one restarts the average from the restored parameters.
+
+With --steps_per_dispatch k the trainer updates the average once per chunk
+of k steps with decay**k (ema.py:37-51): the k - 1 iterates inside a chunk
+are skipped.
 """
 
 import copy
@@ -19,9 +23,10 @@ from txt2vid_tpu_torch.convert import (jax_to_torch_generator, torch_to_jax_gene
 from txt2vid_tpu_torch.utils.checkpoint import restore_state, save_state
 
 
-def make_ema_update(decay: float):
-    """update(ema, generator): ema <- ema + (1 - decay) * (params - ema), in place."""
-    weight = 1.0 - float(decay)
+def make_ema_update(decay: float, steps_per_dispatch: int = 1):
+    """update(ema, generator): ema <- ema + (1 - decay**k) * (params - ema), in
+    place, k = steps_per_dispatch."""
+    weight = 1.0 - float(decay) ** int(steps_per_dispatch)
 
     @torch.no_grad()
     def update(ema: dict, gen: torch.nn.Module) -> dict:

@@ -5,6 +5,14 @@ losses and sec/iter per log period, checkpoints with loss-encoded names
 (utils/checkpoint.py, the JAX package's format) and an `.ema` sibling under
 --g_ema, sample grids from the live and the EMA generator, and NanAbort.
 
+With --steps_per_dispatch k (trainer.py:268-505) each item of the dataset is
+a chunk of k batches that `train_step` runs back to back, returning each
+metric stacked (k,) in step order: the iteration advances by k, log, save
+and sample fire at the chunk's end when a period's boundary falls inside it
+(iteration % period < k; a save not before iteration `period`), the sample
+grids show the chunk's last batch, the EMA moves once per chunk with
+decay**k, and the per-iteration times are divided by k.
+
 Metrics stay on the device until a log or save boundary and are then fetched
 in one transfer. The fetch checks them: a non-finite loss, a non-finite grad
 norm with no --clip_grad guard, a streak of --nan_abort_streak non-finite
@@ -228,8 +236,9 @@ def _rss_gb() -> float:
 def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
           vocab=None, seed: int = 0, on_iteration=None, ema=None):
     """Epoch loop (trainer.py:225-557). `train_step` is a port TrainStep over
-    `gan`; `dataset` yields batch dicts already on the device; iterations
-    continue from train_step.step (a restored checkpoint's)."""
+    `gan` (with --steps_per_dispatch k > 1 a train_step.ChunkStep of k);
+    `dataset` yields batch dicts (chunks of k) already on the device;
+    iterations continue from train_step.step (a restored checkpoint's)."""
     from txt2vid_tpu_torch.gan import ema as ema_mod
     ensure_exists(params.out)
     ensure_exists(params.out_samples)
@@ -252,12 +261,13 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
 
     snapshot = "host" if getattr(params, "host_snapshot", False) else "device"
     checkpointer = AsyncCheckpointer(snapshot=snapshot)
+    k_step = getattr(params, "steps_per_dispatch", 1) or 1
     ema_decay = getattr(params, "g_ema", 0.0) or 0.0
     ema_update = ema_checkpointer = None
     if ema_decay:
         if ema is None:
             ema = ema_mod.init_ema(gan.gen)
-        ema_update = ema_mod.make_ema_update(ema_decay)
+        ema_update = ema_mod.make_ema_update(ema_decay, k_step)
         ema_checkpointer = AsyncCheckpointer(snapshot=snapshot)
 
     def save_checkpoint(path):
@@ -318,11 +328,16 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
         if not pending:
             return
         keys = sorted(pending[0][1])
-        # one transfer for every pending metric
-        flat = torch.stack([m[k].float() for _, m in pending for k in keys]).cpu()
-        rows = flat.view(len(pending), len(keys)).tolist()
-        for (it, _), row in zip(pending, rows):
-            m = dict(zip(keys, row))
+        # one transfer for every pending metric; a chunk's are (k,) in step
+        # order, `it` the iteration of its last step
+        flat = torch.stack([torch.stack([m[k].float().reshape(-1) for k in keys])
+                            for _, m in pending]).cpu()
+        rows = []
+        for (last, _), chunk in zip(pending, flat.tolist()):
+            steps = list(zip(*chunk))
+            rows += [(last - len(steps) + 1 + j, dict(zip(keys, row)))
+                     for j, row in enumerate(steps)]
+        for it, m in rows:
             ld, lg = m["loss_d"], m["loss_g"]
             discrim_loss.update(ld)
             gen_loss.update(lg)
@@ -359,8 +374,8 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
         data_watch.start()
         iter_watch.start()
         for i, batch in enumerate(dataset):
-            avg_data_load.update(data_watch.stop())
-            iteration += 1
+            avg_data_load.update(data_watch.stop() / k_step)
+            iteration += k_step
 
             metrics = train_step(batch)
             if ema_update is not None:
@@ -369,10 +384,11 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
             if len(pending) >= 512:
                 drain_pending()
 
-            first = iteration <= 1
+            first = iteration <= k_step
             if (first and params.save_initial) or (
                     params.save_model_period > 0
-                    and iteration % params.save_model_period == 0):
+                    and iteration % params.save_model_period < k_step
+                    and iteration >= params.save_model_period):
                 drain_pending()
                 burst = any(sum(1 for s in rec if s > iteration - 100) >= 3
                             for rec in nonfinite_recent.values())
@@ -383,13 +399,13 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
                     save_checkpoint(f"{params.out}/"
                                     f"{checkpoint_name(iteration, gen_loss.get(), discrim_loss.get())}")
 
-            if rss_limit and iteration % 100 == 0 and _rss_gb() > rss_limit:
+            if rss_limit and iteration % 100 < k_step and _rss_gb() > rss_limit:
                 status(f"RSS {_rss_gb():.1f} GB exceeds --rss_limit_gb {rss_limit}: "
                        "ending cleanly (resume with --resume)")
                 stop = True
                 break
 
-            if params.log_period > 0 and iteration % params.log_period == 0:
+            if params.log_period > 0 and iteration % params.log_period < k_step:
                 drain_pending()
                 gn = _gfmt("D", gnorm["d"], nonfinite_gnorm["d"]) + \
                     _gfmt("G", gnorm["g"], nonfinite_gnorm["g"])
@@ -403,14 +419,16 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
 
             if params.save_example_period > 0 and (
                     (first and params.save_initial_examples)
-                    or iteration % params.save_example_period == 0):
+                    or iteration % params.save_example_period < k_step):
+                if k_step > 1:      # a (k, B, ...) chunk: its last batch
+                    batch = {k: v[-1] for k, v in batch.items()}
                 _save_examples(gan, batch, params, vocab, epoch, iteration, sample_gen, ema)
 
             if on_iteration is not None:
                 on_iteration(iteration, train_step)
 
             data_watch.start()
-            avg_iter.update(iter_watch.stop())
+            avg_iter.update(iter_watch.stop() / k_step)
             iter_watch.start()
 
     drain_pending()

@@ -128,3 +128,17 @@ class Seq2Seq(nn.Module):
             initial_hidden = tuple(s[0::2] for s in initial_hidden)
         return self.decoder.sample(true_inputs, initial_hidden=initial_hidden,
                                    max_seq_len=max_seq_len, teacher_force=teacher_force)
+
+
+def trainable(model):
+    """Seq2Seq's parameters as flax has them: every one but the LSTMs' bias_ih,
+    which is frozen at zero (returned with requires_grad off)."""
+    params = []
+    for name, p in model.named_parameters():
+        if ".bias_ih_" in name:
+            with torch.no_grad():
+                p.zero_()
+            p.requires_grad_(False)
+        else:
+            params.append(p)
+    return params

@@ -18,8 +18,18 @@ changed, plus the regularization of scripts/r9_session.sh):
 It runs on CUDA unless --device names another device (the tests pass
 --device cpu). --weights, --resume and --sent_weights read checkpoints the
 JAX package wrote, and the port's checkpoints open in the JAX package. A
-NanAbort exits with code 42. Flags of levers the port does not have yet raise
-NotImplementedError naming the flag.
+NanAbort exits with code 42. The multi-device flags (--sp, --fsdp,
+--multihost) raise NotImplementedError naming the flag.
+
+The single-card levers, as the JAX CLI has them (train/gan.py:101-105,
+160-169, 253-340): --sgd trains both sides with optax.sgd's momentum SGD
+(momentum --G_beta1 / --D_beta1); --end2end trains the caption encoder in
+both optimizers, --end2end_d_only in the D optimizer alone; --gen_steps N
+runs N G updates per step; --device_data uploads a packed dataset to the
+card once and assembles each step's batch there (data/device_cache.py; not
+with --img_model or --steps_per_dispatch > 1); --steps_per_dispatch k runs
+k steps on each chunk of k batches, which reaches the card in one copy
+(gan/trainer.py says how the iterations, periods and the EMA count them).
 
 bfloat16, as the JAX CLI has it (train/gan.py:88-124,189-190): --bf16 builds
 G and D with dtype bf16 (float32 parameters, per-use casts; the caption
@@ -52,22 +62,19 @@ from txt2vid_tpu_torch.data import get_loader, load_pickle
 from txt2vid_tpu_torch.gan import trainer
 from txt2vid_tpu_torch.gan.cond_gan import CondGan
 from txt2vid_tpu_torch.gan.losses import MixedGanLoss
-from txt2vid_tpu_torch.gan.train_step import TrainConfig, adam, build_train_step
+from txt2vid_tpu_torch.gan.train_step import (ChunkStep, TrainConfig, adam, build_train_step,
+                                              optimizer_params, sgd)
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
 from txt2vid_tpu_torch.train.setup import setup
-from txt2vid_tpu_torch.utils import count_params, status
+from txt2vid_tpu_torch.utils import count_params, status, warn
 from txt2vid_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_state,
                                                 restore_txt_vars)
 
 # (flag, test of the parsed value): levers of the JAX CLI the port does not have
-# yet
+# yet, all of them across devices
 UNPORTED = (
-    ("--sgd", lambda a: a.sgd),
-    ("--end2end", lambda a: a.end2end), ("--end2end_d_only", lambda a: a.end2end_d_only),
-    ("--gen_steps", lambda a: a.gen_steps > 1), ("--sp", lambda a: a.sp > 1),
-    ("--fsdp", lambda a: a.fsdp > 1), ("--multihost", lambda a: a.multihost),
-    ("--device_data", lambda a: a.device_data),
-    ("--steps_per_dispatch", lambda a: a.steps_per_dispatch > 1),
+    ("--sp", lambda a: a.sp > 1), ("--fsdp", lambda a: a.fsdp > 1),
+    ("--multihost", lambda a: a.multihost),
 )
 
 
@@ -75,8 +82,16 @@ def check_flags(args):
     for flag, used in UNPORTED:
         if used(args):
             raise NotImplementedError(f"{flag} comes in a later slice of the port")
+    k = max(args.steps_per_dispatch, 1)
     if args.clip_grad_split and args.discrim_steps != 1:
         raise ValueError("--clip_grad_split requires discrim_steps == 1")
+    if args.clip_grad_split and k > 1:
+        raise ValueError("--clip_grad_split requires --steps_per_dispatch 1")
+    if args.device_data and not args.test:
+        if args.img_model:
+            raise ValueError("--device_data supports the video path, not --img_model")
+        if k > 1:
+            raise ValueError("--device_data implies --steps_per_dispatch 1")
 
 
 def _seed(seed: int, k: int) -> int:
@@ -109,6 +124,24 @@ def device_batches(loader, device, depth: int):
         yield q.popleft()
 
 
+def stack_batches(batches, k: int):
+    """Chunks of k consecutive batches, each key stacked (k, B, ...); a batch
+    whose leading size differs from the first's is dropped with a message,
+    and so is a trailing group of fewer than k (parallel/mesh.py:179-198)."""
+    group, expect = [], None
+    for b in batches:
+        lead = len(next(iter(b.values())))
+        if expect is None:
+            expect = lead
+        if lead != expect:
+            status(f"dropping a ragged batch (leading size {lead} != {expect})")
+            continue
+        group.append(b)
+        if len(group) == k:
+            yield {key: np.stack([g[key] for g in group]) for key in group[0]}
+            group = []
+
+
 def first_frames(batches):
     """--img_model on a video dataset: each clip's first frame as the image
     (train/gan.py:197-200,301-305)."""
@@ -117,16 +150,22 @@ def first_frames(batches):
 
 
 class LoaderAdapter:
-    def __init__(self, loader, device, depth, first_frame=False):
+    """The trainer's dataset: the loader's batches (each clip's first frame
+    under first_frame), stacked in chunks of k, copied to the device `depth`
+    items ahead."""
+
+    def __init__(self, loader, device, depth, first_frame=False, k=1):
         self.loader, self.device, self.depth = loader, device, depth
-        self.first_frame = first_frame
+        self.first_frame, self.k = first_frame, k
 
     def __iter__(self):
         batches = self.loader if not self.first_frame else first_frames(self.loader)
+        if self.k > 1:
+            batches = stack_batches(batches, self.k)
         return device_batches(batches, self.device, self.depth)
 
     def __len__(self):
-        return len(self.loader)
+        return len(self.loader) // self.k
 
 
 def main(args):
@@ -160,14 +199,38 @@ def main(args):
     gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas,
                   sample_mapping=sample_mapping, discrim_names=args.D_names)
 
-    status("Using Adam")
-    # --bf16 stores the first moment in bf16, --bf16_nu the second; the
-    # update's arithmetic stays float32
-    storage = dict(mu_dtype=torch.bfloat16 if args.bf16 else None,
-                   nu_dtype=torch.bfloat16 if args.bf16_nu else None)
-    opt_d = adam([p for d in discrims for p in d.parameters()], args.D_lr,
-                 args.D_beta1, args.D_beta2, **storage)
-    opt_g = adam(gen.parameters(), args.G_lr, args.G_beta1, args.G_beta2, **storage)
+    config = TrainConfig(
+        frame_sizes=tuple(args.frame_sizes),
+        subsample_input=args.subsample_input,
+        discrim_steps=args.discrim_steps,
+        gen_steps=args.gen_steps,
+        gp_lambda=args.gp_lambda,
+        gp_every=args.gp_every,
+        gp_quarantine=args.gp_quarantine,
+        end2end=args.end2end or args.end2end_d_only,
+        end2end_txt_in_g=not args.end2end_d_only,
+        mean_discrim_loss=not args.no_mean_discrim_loss,
+        mean_gen_loss=not args.no_mean_gen_loss,
+        img_model=args.img_model,
+        latent_size=gen.latent_size,
+        shared_gen_fwd=args.shared_gen_fwd,
+        clip_grad=args.clip_grad or 0.0,
+        compute_dtype=torch.bfloat16 if args.bf16_params else None,
+    )
+    # end2end: the encoder's parameters follow G's and D's in their optimizers
+    g_params, d_params = optimizer_params(gan, config)
+    if args.sgd:
+        status("Using SGD")
+        opt_d = sgd(d_params, args.D_lr, args.D_beta1)
+        opt_g = sgd(g_params, args.G_lr, args.G_beta1)
+    else:
+        status("Using Adam")
+        # --bf16 stores the first moment in bf16, --bf16_nu the second; the
+        # update's arithmetic stays float32
+        storage = dict(mu_dtype=torch.bfloat16 if args.bf16 else None,
+                       nu_dtype=torch.bfloat16 if args.bf16_nu else None)
+        opt_d = adam(d_params, args.D_lr, args.D_beta1, args.D_beta2, **storage)
+        opt_g = adam(g_params, args.G_lr, args.G_beta1, args.G_beta2, **storage)
     if args.clip_grad:
         status(f"Clipping gradients to global norm {args.clip_grad}")
 
@@ -177,23 +240,17 @@ def main(args):
                          random_frames=args.random_frames, normalize=not args.uint8_input)
     loader = get_loader(dset=dset, batch_size=args.batch_size, val=args.test,
                         num_workers=args.workers, seed=seed)
+    ddata = None
+    if args.device_data and not args.test:
+        if not hasattr(dset, "reader"):
+            raise ValueError("--device_data needs a packed dataset "
+                             "(txt2vid_tpu.data.packed.packed_dataset)")
+        from txt2vid_tpu_torch.data.device_cache import DeviceVideoData
+        status("Building the device-resident dataset (one upload)")
+        ddata = DeviceVideoData.from_dataset(dset, random_phase=bool(args.random_frames))
+        ddata.device_arrays(device)
+        status(f"device dataset: {ddata.num_pairs} pairs, {ddata.nbytes} bytes")
 
-    config = TrainConfig(
-        frame_sizes=tuple(args.frame_sizes),
-        subsample_input=args.subsample_input,
-        discrim_steps=args.discrim_steps,
-        gen_steps=args.gen_steps,
-        gp_lambda=args.gp_lambda,
-        gp_every=args.gp_every,
-        gp_quarantine=args.gp_quarantine,
-        mean_discrim_loss=not args.no_mean_discrim_loss,
-        mean_gen_loss=not args.no_mean_gen_loss,
-        img_model=args.img_model,
-        latent_size=gen.latent_size,
-        shared_gen_fwd=args.shared_gen_fwd,
-        clip_grad=args.clip_grad or 0.0,
-        compute_dtype=torch.bfloat16 if args.bf16_params else None,
-    )
     if args.G_loss is None:
         args.G_loss = args.D_loss
     losses = MixedGanLoss(g_loss=create_object(args.G_loss), d_loss=create_object(args.D_loss))
@@ -223,12 +280,32 @@ def main(args):
     status("GAN has %d parameters (~%.2f * 10^8)" % (n_params, n_params / 1e8))
     status(f"Dataset len= {len(loader) * args.batch_size} ({len(loader)} batches)")
 
-    dataset = LoaderAdapter(loader, device, args.prefetch,
-                            first_frame=args.img_model and not args.data_is_imgs)
+    first_frame = args.img_model and not args.data_is_imgs
     if args.test:
-        trainer.test(gan=gan, num_samples=args.num_samples, dataset=dataset, params=args,
-                     vocab=vocab, ema=ema)
+        # sampling takes plain batches
+        trainer.test(gan=gan, num_samples=args.num_samples,
+                     dataset=LoaderAdapter(loader, device, args.prefetch, first_frame),
+                     params=args, vocab=vocab, ema=ema)
         return
+    # the trainer counts iterations and periods by it
+    k = args.steps_per_dispatch = max(args.steps_per_dispatch, 1)
+    if ddata is not None:
+        from txt2vid_tpu_torch.data.device_cache import DeviceDataStep, DeviceEpochIterator
+        step = DeviceDataStep(step, ddata, args.batch_size, seed=seed)
+        # the real-sample grids' host batches, each copied to the device once
+        dataset = DeviceEpochIterator(
+            ddata, args.batch_size, seed=seed,
+            put=lambda b: next(device_batches([b], device, 0)))
+    else:
+        dataset = LoaderAdapter(loader, device, args.prefetch, first_frame, k=k)
+    if k > 1:
+        for name in ("save_model_period", "log_period", "save_example_period"):
+            period = getattr(args, name, 0)
+            if period and period % k:
+                warn(f"--{name} {period} is not a multiple of --steps_per_dispatch {k}: "
+                     f"actions fire at the chunk-end iteration after the boundary (e.g. "
+                     f"period {period} saves at iter {(period // k + 1) * k})")
+        step = ChunkStep(step, k)
     try:
         trainer.train(gan=gan, train_step=step, num_epoch=args.epochs, dataset=dataset,
                       params=args, vocab=vocab, seed=seed, ema=ema)
@@ -255,9 +332,11 @@ def build_parser():
     parser.add_argument('--prefetch', type=int, default=3,
                         help='batches copied to the device ahead of the train step')
     parser.add_argument('--device_data', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='upload the packed dataset to the device once and '
+                             'assemble each step\'s batch there')
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
-                        help='not in the port yet (values above 1 raise)')
+                        help='run k train steps on each chunk of k batches, copied to '
+                             'the device in one transfer (use periods divisible by k)')
     parser.add_argument('--frame_sizes', type=int, nargs='+', default=[64])
     parser.add_argument('--num_channels', type=int, default=1)
     parser.add_argument('--random_frames', type=int, default=0)
@@ -291,11 +370,11 @@ def build_parser():
     parser.add_argument('--sent', type=str, default=None)
     parser.add_argument('--dont_use_sent', action='store_true', default=False)
     parser.add_argument('--end2end', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='train the caption encoder in both optimizers')
     parser.add_argument('--end2end_d_only', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='train the caption encoder in the D optimizer alone')
     parser.add_argument('--sgd', action='store_true', default=False,
-                        help='not in the port yet (raises)')
+                        help='momentum SGD (momentum = beta1) in place of Adam')
     parser.add_argument('--clip_grad', type=float, default=None,
                         help='global gradient-norm clip for both optimizers')
     parser.add_argument('--clip_grad_split', action='store_true', default=False,
@@ -313,8 +392,8 @@ def build_parser():
                              'which every forward and backward reads (stored '
                              'parameters and the update stay float32)')
     parser.add_argument('--shared_gen_fwd', action='store_true', default=False,
-                        help='accepted: the port always runs one generator forward '
-                             'per step, which outside end2end is the same computation')
+                        help='accepted: with gen_steps 1 outside end2end the port always '
+                             'runs one generator forward per step, the same computation')
     parser.add_argument('--sp', type=int, default=1, help='not in the port yet (>1 raises)')
     parser.add_argument('--fsdp', type=int, default=1, help='not in the port yet (>1 raises)')
     parser.add_argument('--uint8_input', action='store_true', default=True,

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from txt2vid_tpu_torch.config import create_object
 from txt2vid_tpu_torch.convert import jax_txt_state_to_torch, txt_state_to_jax
 from txt2vid_tpu_torch.data import build_vocab, encode_caption, load_pickle
-from txt2vid_tpu_torch.models.txt import Seq2Seq
+from txt2vid_tpu_torch.models.txt import Seq2Seq, trainable
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
 from txt2vid_tpu_torch.train.setup import setup
 from txt2vid_tpu_torch.utils import RollingAvg, ensure_exists, status
@@ -70,20 +70,6 @@ def txt_loss(model, caps, lengths, teacher_force: bool):
             < (lengths - 1)[:, None]).to(raw.dtype)
     nll = -F.log_softmax(raw, dim=-1).gather(-1, caps[:, 1:, None])[..., 0]
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-
-
-def trainable(model):
-    """Seq2Seq's parameters as flax has them: every one but the LSTMs' bias_ih,
-    which is frozen at zero (returned with requires_grad off)."""
-    params = []
-    for name, p in model.named_parameters():
-        if ".bias_ih_" in name:
-            with torch.no_grad():
-                p.zero_()
-            p.requires_grad_(False)
-        else:
-            params.append(p)
-    return params
 
 
 def make_step(model, opt):
