@@ -172,6 +172,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    batch's. (d) utils.profiling.trace around one cond-128 GP and one plain
    step: the top 10 device kernels of each and format_memory_stats().
 
+12. ingest (last): from raw captions and an original-code checkpoint to a
+   run, with the tools this machine can run (it has no cv2, PIL or pandas;
+   the phase names the parts held on the CPU only). (a) A reddit-style JSON
+   of 50 {url, title} entries and the clips cache.py would write for them
+   (`<url_to_key(url)>.npy`, 16x64x64x3 uint8, synthetic, from --seed),
+   then `python -m` data.reddit, data.split (80/20), the vocabulary CLI and
+   data.benchmark over the train split (s/item), and train.gan.main with
+   phase cli's command line on the 40 train clips for 2 steps, each finite
+   at 17 / 13 / 13 launches. (b) Phase serve's flagship G (gammas 1,
+   nonzero BatchNorm statistics), a MultiScaleDiscrim and the encoder from
+   --seed, written as the original trainer's torch.save dict (D's keys with
+   nn.DataParallel's `module.` segments, by the `orig_*` writer below),
+   imported by `python -m txt2vid_tpu_torch.compat.torch_import` (its
+   seconds and bytes), served (20 captions, uint8 within 1 of the source
+   modules' service, K1 launched) and trained one --weights step from,
+   finite at 17 / 13 / 13. (c) subsample_rect on the card against the CPU.
+
 Each phase prints its seconds. The kernels line holds each kernel twice: its
 float32 instantiations (K1 at the serving shape, K2 and K3 at the training
 shape, the launches of phases serve and train) and its bfloat16 ones (at the
@@ -185,7 +202,9 @@ float32 and bfloat16, in the order baseline, this, this, baseline.
 
 K1's float32 record also holds phase eval's launches and shapes
 ("eval_launches", "eval_shapes"); each float32 record holds phase levers'
-launches per run and per step ("levers_launches", "levers_launches_per_step").
+launches per run and per step ("levers_launches", "levers_launches_per_step"),
+and phase ingest's part a ("ingest_launches"); K1's its serving of the
+imported checkpoint ("import_serve_launches").
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -214,9 +233,12 @@ import torch
 from txt2vid_tpu_torch import bench
 from txt2vid_tpu_torch import sample as sample_mod
 from txt2vid_tpu_torch import serve as serve_mod
-from txt2vid_tpu_torch.convert import load_encoder_vars, torch_state_to_jax, txt_state_to_jax
+from txt2vid_tpu_torch.config import create_object
+from txt2vid_tpu_torch.convert import (load_encoder_vars, module_vars, torch_state_to_jax,
+                                       torch_to_jax_encoder, txt_state_to_jax)
 from txt2vid_tpu_torch.data import build_vocab, load_pickle
 from txt2vid_tpu_torch.data import packed
+from txt2vid_tpu_torch.data.reddit import url_to_key
 from txt2vid_tpu_torch.data.synthetic import generate_examples, moving_digit_captions
 from txt2vid_tpu_torch.eval import alignment as alignment_mod
 from txt2vid_tpu_torch.eval import classifier as classifier_mod
@@ -229,11 +251,13 @@ from txt2vid_tpu_torch.models.layers import Attention, Attention3d
 from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops import _build
 from txt2vid_tpu_torch.ops import attention as attention_mod
+from txt2vid_tpu_torch.ops import subsample_rect
 from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
     SUPPORTED_DV, attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
     attention_bwd_dq_reference, attention_delta, dkv_splits, dq_splits, fused_attention,
     fused_attention_reference, occupancy, sm_count)
+from txt2vid_tpu_torch.ops.initializers import init_from_seed
 from txt2vid_tpu_torch.ops.optim import AdamStorage
 from txt2vid_tpu_torch.serve import GeneratorService
 from txt2vid_tpu_torch.train import gan as train_gan
@@ -3100,6 +3124,388 @@ def phase_levers(seed, cond_root, cond_ms):
     return out
 
 
+
+# ------------------------------------------------ original-code checkpoints
+# The state_dict layout of the original PyTorch code, written from flax-layout
+# variables: the inverse of compat/torch_import's converters, so that a
+# checkpoint in that layout can be made without that code. Test scaffolding
+# (phase ingest and tests/test_torch_compat_import.py), not a feature.
+
+def orig_conv(sd, p, v):
+    """flax Conv {kernel (*k, I, O), bias?} -> torch Conv weight (O, I, *k)."""
+    k = np.asarray(v["kernel"], np.float32)
+    n = k.ndim - 2
+    sd[f"{p}.weight"] = np.ascontiguousarray(k.transpose(n + 1, n, *range(n)))
+    if "bias" in v:
+        sd[f"{p}.bias"] = np.asarray(v["bias"], np.float32)
+
+
+def _unpermute(a, perm, axis=-1):
+    """b with b.take(perm, axis) == a: undoes a converter's `[..., perm]`."""
+    out = np.empty_like(a)
+    idx = [slice(None)] * a.ndim
+    idx[axis] = perm
+    out[tuple(idx)] = a
+    return out
+
+
+def orig_dense(sd, p, v, perm=None):
+    """flax Dense -> torch Linear; `perm` undoes the converter's permutation
+    of the output rows."""
+    k, b = np.asarray(v["kernel"], np.float32), v.get("bias")
+    if perm is not None:
+        k = _unpermute(k, perm)
+        b = None if b is None else _unpermute(np.asarray(b), perm)
+    sd[f"{p}.weight"] = np.ascontiguousarray(k.T)
+    if b is not None:
+        sd[f"{p}.bias"] = np.asarray(b, np.float32)
+
+
+def orig_conv_transpose(sd, p, v):
+    """flax ConvTranspose (*k, I, O) -> torch's (I, O, *k), flipped back."""
+    k = np.asarray(v["kernel"], np.float32)
+    n = k.ndim - 2
+    w = np.flip(k.transpose(n, n + 1, *range(n)), axis=tuple(range(2, n + 2)))
+    sd[f"{p}.weight"] = np.ascontiguousarray(w)
+    if "bias" in v:
+        sd[f"{p}.bias"] = np.asarray(v["bias"], np.float32)
+
+
+def orig_bn(sd, p, params, stats, perm=None):
+    un = (lambda a: np.asarray(a, np.float32)) if perm is None else \
+        (lambda a: _unpermute(np.asarray(a, np.float32), perm))
+    sd[f"{p}.weight"], sd[f"{p}.bias"] = un(params["scale"]), un(params["bias"])
+    sd[f"{p}.running_mean"], sd[f"{p}.running_var"] = un(stats["mean"]), un(stats["var"])
+    sd[f"{p}.num_batches_tracked"] = np.array(0, np.int64)
+
+
+def orig_attn(sd, p, v):
+    for name in ("theta", "phi", "g", "o"):
+        orig_conv(sd, f"{p}.{name}", v[name])
+    sd[f"{p}.gamma"] = np.asarray(v["gamma"], np.float32)
+
+
+def orig_upblock(sd, p, params, stats):
+    orig_bn(sd, f"{p}.main.inner_module.0", params["bn1"], stats["bn1"])
+    orig_conv(sd, f"{p}.main.inner_module.3", params["conv1"])
+    orig_bn(sd, f"{p}.main.inner_module.4", params["bn2"], stats["bn2"])
+    orig_conv(sd, f"{p}.main.inner_module.6", params["conv2"])
+    if "conv_identity" in params:
+        orig_conv(sd, f"{p}.main.identity_map.1", params["conv_identity"])
+    if "attn" in params:
+        orig_attn(sd, f"{p}.attn", params["attn"])
+
+
+def orig_convlstm(sd, p, params):
+    """The fused i,f,g,o convolutions -> the original's 8 per-gate ones a cell."""
+    cells = params["cells"]
+    for li in range(sum(k.startswith("wh") for k in cells)):
+        wx = params["wx0"] if li == 0 else cells[f"wx{li}"]
+        bx = params["wx0_bias"] if li == 0 else wx["bias"]
+        parts = zip("ifco", np.split(np.asarray(wx["kernel"]), 4, axis=-1),
+                    np.split(np.asarray(bx), 4),
+                    np.split(np.asarray(cells[f"wh{li}"]["kernel"]), 4, axis=-1))
+        for g, kx, b, kh in parts:
+            orig_conv(sd, f"{p}.cell{li}.Wx{g}", {"kernel": kx, "bias": b})
+            orig_conv(sd, f"{p}.cell{li}.Wh{g}", {"kernel": kh})
+
+
+def fc_perm(fm_c, fm_h, fm_w):
+    """compat/torch_import._fc_perm: the (C, h, w)-major -> (h, w, C) rows."""
+    return np.arange(fm_c * fm_h * fm_w).reshape(fm_c, fm_h, fm_w).transpose(1, 2, 0) \
+        .reshape(-1)
+
+
+def orig_multiscale_gen(variables, fm_hw=None):
+    """A TGANv2 MultiScaleGen's variables -> its original state_dict (the
+    ConvLSTM core, or no_lstm's seed generator)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    if "frame_seed_gen" in params:
+        fm_c = np.shape(params["base"]["up0"]["bn1"]["scale"])[0]
+        fs_p, fs_s = params["frame_seed_gen"], stats["frame_seed_gen"]
+        plane = np.shape(fs_p["dc4"]["kernel"])[-1] // fm_c
+        for i in range(5):
+            dc = fs_p[f"dc{i}"]
+            if i == 4 and plane > 1:
+                perm = fc_perm(fm_c, *(fm_hw or (int(round(plane ** 0.5)),) * 2))
+                dc = {"kernel": _unpermute(np.asarray(dc["kernel"]), perm),
+                      "bias": _unpermute(np.asarray(dc["bias"]), perm)}
+            orig_conv_transpose(sd, f"frame_seed_gen.dc{i}", dc)
+            if i < 4:
+                orig_bn(sd, f"frame_seed_gen.bn{i}", fs_p[f"bn{i}"], fs_s[f"bn{i}"])
+        orig_dense(sd, "fc", params["fc"])
+    else:
+        fm_c = np.shape(params["clstm"]["wx0"]["kernel"])[-1] // 4
+        plane = np.shape(params["fc"]["kernel"])[1] // fm_c
+        fm_h, fm_w = fm_hw or (int(round(plane ** 0.5)),) * 2
+        orig_dense(sd, "fc", params["fc"], perm=fc_perm(fm_c, fm_h, fm_w))
+        orig_convlstm(sd, "clstm", params["clstm"])
+    for i in range(3):
+        orig_upblock(sd, f"abstract_blocks.0.up{i}", params["base"][f"up{i}"],
+                     stats["base"][f"up{i}"])
+    n = sum(k.startswith("up") for k in params)
+    for i in range(n):
+        orig_upblock(sd, f"abstract_blocks.{i + 1}", params[f"up{i}"], stats[f"up{i}"])
+    for i, name in enumerate(["render_base"] + [f"render{j}" for j in range(n)]):
+        orig_bn(sd, f"render_blocks.{i}.bn", params[name]["bn"], stats[name]["bn"])
+        orig_conv(sd, f"render_blocks.{i}.conv", params[name]["conv"])
+    return sd
+
+
+def orig_resnet3d(sd, p, params):
+    """Resnet3D: the stem, the DownBlocks with the Attention3d after the
+    first in one ModuleList (`down`), the heads."""
+    q = f"{p}." if p else ""
+    orig_conv(sd, f"{q}res_block.inner_module.0", params["stem_conv1"])
+    orig_conv(sd, f"{q}res_block.inner_module.2", params["stem_conv2"])
+    orig_conv(sd, f"{q}res_block.identity_map.1", params["stem_skip"])
+    orig_dense(sd, f"{q}fc_uncond", params["fc_uncond"])
+    blocks = [params[f"down{i}"] for i in range(sum(k.startswith("down") for k in params))]
+    entries = blocks[:1] + ([params["attn"]] if "attn" in params else []) + blocks[1:]
+    for mi, v in enumerate(entries):
+        if "theta" in v:
+            orig_attn(sd, f"{q}down.{mi}", v)
+            continue
+        orig_conv(sd, f"{q}down.{mi}.main.inner_module.1", v["conv1"])
+        orig_conv(sd, f"{q}down.{mi}.main.inner_module.3", v["conv2"])
+        orig_conv(sd, f"{q}down.{mi}.main.identity_map.0", v["conv_identity"])
+    if "fc" in params:
+        orig_dense(sd, f"{q}fc", params["fc"])
+    return sd
+
+
+def orig_multiscale_discrim(variables, data_parallel=False):
+    """A TGANv2 MultiScaleDiscrim's variables -> its original state_dict;
+    data_parallel adds the `module.` segment nn.DataParallel puts after each
+    sub-discriminator's name."""
+    params, sd = variables["params"], {}
+    dp = ".module" if data_parallel else ""
+    if "discrim" in params:
+        return orig_resnet3d(sd, f"single_discrim{dp}", params["discrim"])
+    for i in range(len(params)):
+        orig_resnet3d(sd, f"sub_discrims.{i}{dp}", params[f"discrim{i}"])
+    return sd
+
+
+def orig_seq2seq(variables):
+    """Seq2Seq's variables -> the original's state_dict, the shared decoder
+    registered again under `decoder.`. Each gate's flax bias is split in
+    halves between bias_ih and bias_hh, whose sum the converter takes."""
+    enc, sd = variables["params"]["encoder"], {}
+    sd["encoder.embed.weight"] = np.asarray(enc["embed"]["embedding"], np.float32)
+    for name, layer in enc.items():
+        m = re.fullmatch(r"l(\d+)_(fwd|bwd)", name)
+        if m is None:
+            continue
+        cell = layer["cell"]
+        sfx = f"_l{m[1]}" + ("_reverse" if m[2] == "bwd" else "")
+        bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"], np.float32) for g in "ifgo"])
+        sd[f"encoder.lstm.weight_ih{sfx}"] = np.concatenate(
+            [np.asarray(cell[f"i{g}"]["kernel"], np.float32).T for g in "ifgo"])
+        sd[f"encoder.lstm.weight_hh{sfx}"] = np.concatenate(
+            [np.asarray(cell[f"h{g}"]["kernel"], np.float32).T for g in "ifgo"])
+        sd[f"encoder.lstm.bias_ih{sfx}"] = bias / 2
+        sd[f"encoder.lstm.bias_hh{sfx}"] = bias - bias / 2
+    if "to_vocab" in enc:
+        orig_dense(sd, "encoder.to_vocab", enc["to_vocab"])
+    sd.update({"decoder." + k[len("encoder."):]: v for k, v in list(sd.items())})
+    return sd
+
+
+
+# phase ingest: the host tools this machine can run (no cv2, PIL or pandas
+# here) from raw captions to a training run, an original-code checkpoint
+# through the importer to serving and a step, and subsample_rect on the card
+INGEST_CLIPS, INGEST_STEPS = 50, 2
+COND_G = "txt2vid_tpu.models.tganv2_cond.MultiScaleGen"
+COND_D = "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim"
+INGEST_CPU_ONLY = ("data.cache (cv2 decode_video, build_cache and its CLI), "
+                   "data.mrvdc (pandas read_csv, the cv2 frame probe), the frame-directory "
+                   "clips of data.load_video_frames (PIL) and data.mrvdc_yt's gated client: "
+                   "held against the JAX package on the CPU only (tests/test_torch_ingest.py)")
+
+
+def run_module(module, *argv):
+    """`python -m module argv` from the checkout; (stdout, seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *map(str, argv)],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"{module} failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def phase_ingest(seed):
+    root = smoke_dir("ingest_smoke_")
+    try:
+        return _phase_ingest(root, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _ingest_raw(root, seed):
+    """Part a: a reddit-style JSON and the clips cache.py would write for it,
+    then the CLIs a user runs (reddit, split, the vocabulary, benchmark) and
+    2 flagship training steps on the train split. Returns the launches."""
+    t0 = time.perf_counter()
+    raw = root / "raw"
+    sents = generate_examples(raw, root / "raw.pickle", num_examples=INGEST_CLIPS,
+                              frame_size=(64, 64), num_frames=16, seed=seed, num_channels=3)
+    rng = np.random.default_rng(seed)
+    entries = []
+    (root / "clips").mkdir()
+    for i, caps in sents.items():
+        url = (f"https://v.redd.it/{rng.integers(16 ** 8):08x}/DASH_{i}.mp4"
+               f"?source=fallback&n={i}%2F{INGEST_CLIPS}")
+        entries.append({"url": url, "title": caps[0]})
+        clip = np.load(raw / f"{i}.npy")
+        check(clip.shape == (16, 64, 64, 3) and clip.dtype == np.uint8,
+              f"ingest: clip {i} is {clip.dtype} {clip.shape}")
+        np.save(root / "clips" / f"{url_to_key(url)}.npy", clip)
+    (root / "videos.json").write_text(json.dumps(entries))
+    made_s = time.perf_counter() - t0
+    out, reddit_s = run_module("txt2vid_tpu_torch.data.reddit", "--json", root / "videos.json",
+                               "--out", root / "sent.pickle")
+    check(out.strip() == f"{INGEST_CLIPS} videos", f"ingest: reddit printed {out!r}")
+    out, split_s = run_module("txt2vid_tpu_torch.data.split", "--src", root / "clips",
+                              "--train", root / "videos", "--val", root / "val")
+    n_train = int(0.8 * INGEST_CLIPS)
+    check(out.strip() == str((n_train, INGEST_CLIPS - n_train)), f"ingest: split printed {out!r}")
+    _, vocab_s = run_module("txt2vid_tpu_torch.data", "--sents", root / "sent.pickle",
+                            "--out", root / "vocab.pickle")
+    spec = json.dumps({"class": "txt2vid_tpu.data.my_dataset",
+                       "args": {"data": str(root / "videos"), "num_frames": 16}})
+    out, bench_s = run_module("txt2vid_tpu_torch.data.benchmark", "--data", spec,
+                              "--anno", root / "sent.pickle", "--vocab", root / "vocab.pickle")
+    m = re.match(r"(\d+) items in ([0-9.]+)s \(([0-9.]+) s/item\)", out.strip().splitlines()[-1])
+    check(m is not None and int(m[1]) == n_train, f"ingest: benchmark printed {out!r}")
+    print(f"phase ingest: a: {INGEST_CLIPS} clips of 16x64x64x3 and their reddit JSON made in "
+          f"{made_s:.2f} s; reddit {reddit_s:.2f} s, split {split_s:.2f} s ({n_train} train, "
+          f"{INGEST_CLIPS - n_train} val), vocabulary ({len(load_pickle(root / 'vocab.pickle'))} "
+          f"words) {vocab_s:.2f} s, benchmark {bench_s:.2f} s: {m[1]} items in {m[2]} s, "
+          f"{m[3]} s/item (each command's seconds include its interpreter's start)")
+
+    tf32_on()
+    zero_counts()
+    t0 = time.perf_counter()
+    with StepRecorder() as rec:
+        train_gan.main(train_gan.build_parser().parse_args(
+            cli_argv(root, seed, "--epochs", str(INGEST_STEPS))))
+    torch.cuda.synchronize()
+    check_tf32_off("ingest")
+    run_s = time.perf_counter() - t0
+    totals = counts()
+    check(len(rec.steps) == INGEST_STEPS, f"ingest: {len(rec.steps)} steps, {INGEST_STEPS} "
+                                          "expected")
+    for r in rec.steps:
+        print(f"phase ingest: a: step {r['iteration']} ({'GP' if r['gp'] else 'plain'}): "
+              f"{r['ms']:.2f} ms, {r['metrics']}, launches {r['launches']}")
+        check(all(math.isfinite(v) for v in r["metrics"].values()),
+              f"ingest step {r['iteration']}: non-finite {r['metrics']}")
+        check(r["launches"] == TRAIN_LAUNCHES, f"ingest step {r['iteration']}: launches "
+              f"{r['launches']}, expected {TRAIN_LAUNCHES}")
+    print(f"phase ingest: a: train.gan.main on the {n_train} train clips, {INGEST_STEPS} steps "
+          f"at batch {bench.BATCH} in {run_s:.2f} s with the CLI's set-up; launches {totals}")
+    return totals
+
+
+def original_checkpoint(path, gen, disc, enc):
+    """The original trainer's flat torch.save dict of CPU modules, D's keys
+    with nn.DataParallel's `module.` segments."""
+    tensors = lambda sd: {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+    opt = torch.optim.Adam(gen.parameters())
+    torch.save({"optG": opt.state_dict(), "optD": opt.state_dict(),
+                "gen": tensors(orig_multiscale_gen(module_vars(gen))),
+                "cond": tensors(orig_seq2seq({"params": torch_to_jax_encoder(enc.state_dict())})),
+                "discrim-0": tensors(orig_multiscale_discrim(module_vars(disc),
+                                                             data_parallel=True))}, path)
+
+
+def _ingest_import(root, seed):
+    """Part b: phase serve's flagship G (with nonzero BatchNorm statistics),
+    D and encoder from --seed, written as an original-code checkpoint,
+    imported by the CLI, served and trained from. Returns K1's launches of
+    the imported service."""
+    vocab = load_pickle(root / "vocab.pickle")
+    src = GeneratorService.from_seed(vocab, seed=seed + 7, batch_size=BATCH, device="cpu")
+    gen, enc = src.gan.gen, src.gan.cond_encoder
+    disc = init_from_seed(create_object(COND_D, cond_dim=enc.encoding_size), seed + 9)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in (*gen.modules(), *disc.modules()):
+            if isinstance(m, (Attention, Attention3d)):
+                m.gamma.fill_(1.0)
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.normal_(generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    ckpt, imported = root / "ref_iter_100_lossG_0.7_lossD_0.7", root / "imported"
+    original_checkpoint(ckpt, gen, disc, enc)
+    _, import_s = run_module("txt2vid_tpu_torch.compat.torch_import", "--ckpt", ckpt,
+                             "--out", imported, "--G", COND_G, "--D", COND_D,
+                             "--sent", "txt2vid_tpu.models.txt.Seq2Seq",
+                             "--vocab", root / "vocab.pickle")
+    n_bytes = imported.stat().st_size
+    print(f"phase ingest: b: the original-code checkpoint ({ckpt.stat().st_size} bytes) "
+          f"imported by `python -m txt2vid_tpu_torch.compat.torch_import` in {import_s:.2f} s "
+          f"(the interpreter's start and the card's set-up included): {n_bytes} bytes")
+
+    svc = GeneratorService.from_checkpoint(imported, COND_G, [COND_D],
+                                           sent="txt2vid_tpu.models.txt.Seq2Seq",
+                                           vocab_path=root / "vocab.pickle", batch_size=BATCH,
+                                           device="cuda")
+    src = GeneratorService(src.gan, vocab=vocab, batch_size=BATCH, device="cuda")
+    captions = mixed_captions(NUM_CAPTIONS, seed)
+    svc.generate(sentences=captions, seed=seed + 1)           # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = svc.generate(sentences=captions, seed=seed)
+    dt = time.perf_counter() - t0
+    launches = fused_attention.launches
+    ref = src.generate(sentences=captions, seed=seed)
+    diff = int(np.abs(out.astype(int) - ref.astype(int)).max())
+    check(out.shape == (NUM_CAPTIONS, 16, 64, 64, 3) and float(out.std()) > 1.0,
+          f"ingest: the imported service returned {out.shape}, std {out.std()}")
+    check(launches == len(svc._chunks(captions)[1]),
+          f"ingest: K1 launched {launches} times serving the imported checkpoint")
+    print(f"phase ingest: b: {NUM_CAPTIONS} captions served from the imported checkpoint, "
+          f"{1e3 * dt / NUM_CAPTIONS:.3f} ms/video, K1 launches {launches}; uint8 max|diff| "
+          f"from the source modules' service {diff} (tol {SERVE_TOL[False][1]})")
+    check(diff <= SERVE_TOL[False][1], "ingest: the imported checkpoint serves otherwise")
+
+    zero_counts()
+    with StepRecorder() as rec:
+        train_gan.main(train_gan.build_parser().parse_args(
+            cli_argv(root, seed, "--epochs", "1", "--weights", str(imported),
+                     "--out", str(root / "from_import"))))
+    check(len(rec.steps) == 1 and all(math.isfinite(v) for v in rec.steps[0]["metrics"].values()),
+          f"ingest: the --weights step from the import: {[r['metrics'] for r in rec.steps]}")
+    check(rec.steps[0]["launches"] == TRAIN_LAUNCHES,
+          f"ingest: the --weights step launched {rec.steps[0]['launches']}")
+    print(f"phase ingest: b: one --weights step from the imported checkpoint: "
+          f"{rec.steps[0]['ms']:.2f} ms, {rec.steps[0]['metrics']}")
+    return launches
+
+
+def _phase_ingest(root, seed):
+    print(f"phase ingest: {INGEST_CPU_ONLY}")
+    launches = _ingest_raw(root, seed)
+    import_launches = _ingest_import(root, seed)
+    # part c: the crop on the card and on the CPU, offsets drawn once
+    x = torch.randn(bench.BATCH, 16, 64, 64, 3, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    offsets = [int(torch.randint(0, hi, (), generator=gen)) for hi in (16 - 8 + 1, 64 - 48 + 1,
+                                                                       64 - 40 + 1)]
+    card = subsample_rect(x.cuda(), 40, 48, 8, offsets=offsets)
+    cpu = subsample_rect(x, 40, 48, 8, offsets=offsets)
+    check(card.is_cuda and torch.equal(card.cpu(), cpu) and cpu.shape == (bench.BATCH, 8, 48, 40, 3),
+          "ingest: subsample_rect on the card differs from the CPU's")
+    print(f"phase ingest: c: subsample_rect (B, 16, 64, 64, 3) -> {tuple(card.shape)} at offsets "
+          f"{offsets}: the card's crop equals the CPU's")
+    return {"launches": launches, "import_serve_launches": import_launches}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3146,6 +3552,7 @@ def main():
         shutil.rmtree(cond_root, ignore_errors=True)
     families = timed("families", phase_families, args.seed)
     timed("txt", phase_txt, args.seed)
+    ingest = timed("ingest", phase_ingest, args.seed)
     for r in records + bf16_records:
         r["tc_instructions"] = tc[r["name"]]
     records[0]["launches"] = serve_launches
@@ -3159,7 +3566,9 @@ def main():
         r["cond128_launches_per_step"] = cond["per_step"][r["name"]]
         r["no_lstm_launches"] = families["launches"][r["name"]]
         r["no_lstm_launches_per_step"] = NO_LSTM_LAUNCHES[r["name"]]
+        r["ingest_launches"] = ingest["launches"][r["name"]]
     records[0]["cond128_serve_launches"] = cond["serve_launches"]
+    records[0]["import_serve_launches"] = ingest["import_serve_launches"]
     # phase levers: each run's launches (its 3 steps, or 4 for device data
     # and 8 for the k-step dispatch) and per step
     for r in records:

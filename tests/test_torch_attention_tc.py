@@ -36,6 +36,16 @@ from txt2vid_tpu.ops.pallas_attention import fused_attention as jax_fused_attent
 from txt2vid_tpu.ops.pallas_attention import fused_attention_bwd as jax_fused_attention_bwd
 from txt2vid_tpu_torch.ops import fused_attention as port_fused
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models on one intra-op thread: beside other test processes,
+    torch's thread pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 1e-4
 
 

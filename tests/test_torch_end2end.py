@@ -85,6 +85,16 @@ from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops import attention as port_attention
 from txt2vid_tpu_torch.utils.checkpoint import restore_state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models on one intra-op thread: beside other test processes,
+    torch's thread pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 STEPS = 2
 BATCH_SEED = 0
 # G's gradients against the float64 step, either float32 side (see the

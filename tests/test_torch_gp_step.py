@@ -48,7 +48,7 @@ import torch
 
 from test_torch_models import jax_variables
 from test_torch_train_step import (B, DISC, ENC, FRAME_SIZES, GEN, LR, _leaf_scales, host,
-                                   jax_state, make_batch)
+                                   jax_state, make_batch, one_torch_thread)
 from txt2vid_tpu.gan import losses as jax_losses
 from txt2vid_tpu.gan.cond_gan import CondGan as JaxCondGan
 from txt2vid_tpu.gan.train_step import TrainConfig as JaxTrainConfig
@@ -365,7 +365,7 @@ def test_step_counter_and_counts_written_back(run):
     assert int(tree["opt_d_state"]["0"]["count"]) == int(run["new"].opt_d_state[0].count) == 2
 
 
-def test_quarantine_split_equals_the_fused_step(tmp_path):
+def test_quarantine_split_equals_the_fused_step(tmp_path, one_torch_thread):
     """main + gp_only (gp_quarantine) is the fused GP step: the same losses,
     norms, moments and parameters (float32, 1e-6 relative: only the order of
     the gradient sums differs)."""

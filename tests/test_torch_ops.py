@@ -27,6 +27,16 @@ from txt2vid_tpu_torch.ops.fused_attention import (SUPPORTED_DV, _check_kernel,
                                                    fused_attention_reference)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models on one intra-op thread: beside other test processes,
+    torch's thread pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(ref, got, tol, what=""):
     ref = np.asarray(ref, np.float64)
     got = (got.detach().cpu().numpy() if isinstance(got, torch.Tensor)

@@ -32,6 +32,16 @@ from txt2vid_tpu_torch.ops import pooling as port_pooling
 from txt2vid_tpu_torch.ops import subsample as port_subsample
 from txt2vid_tpu_torch.utils.misc import gen_perm_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models on one intra-op thread: beside other test processes,
+    torch's thread pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # (B, N, M, d, dv): both instantiations and a ragged shape
 BWD_SHAPES = [(2, 64, 16, 4, 16), (1, 64, 16, 16, 64), (2, 90, 22, 16, 64)]
 

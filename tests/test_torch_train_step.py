@@ -416,7 +416,20 @@ def _tiny_port_step(shared, seed=0):
     return metrics, gen
 
 
-def test_shared_and_two_forward_steps_agree():
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test that compares the port with itself, not
+    with JAX: beside other test processes, torch's thread pool oversubscribes
+    the cores. (The comparisons with JAX stay at torch's default: at one or
+    two threads the float32 reductions move G's gradients of the tiny
+    generator past their tolerances.)"""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_shared_and_two_forward_steps_agree(one_torch_thread):
     """Outside end2end the two-forward form computes what shared_gen_fwd does,
     so the port runs one generator forward per step for either value of the
     flag: the numbers, BatchNorm running statistics included, agree."""
@@ -429,7 +442,7 @@ def test_shared_and_two_forward_steps_agree():
         assert torch.allclose(sa[k].float(), sb[k].float(), rtol=1e-5, atol=1e-6), k
 
 
-def test_bench_cli(monkeypatch, capsys):
+def test_bench_cli(monkeypatch, capsys, one_torch_thread):
     """`python -m txt2vid_tpu_torch.bench --profile 1`'s path on the CPU, with
     the flagship swapped for the small models and fewer steps."""
     import json

@@ -21,8 +21,6 @@ import importlib
 import json
 from pathlib import Path
 
-import torch
-
 # reference dotted paths -> the JAX package's, as txt2vid_tpu/config.py maps them
 LEGACY_ALIASES = {
     "txt2vid.models.tganv2_cond.gen.MultiScaleGen": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
@@ -73,12 +71,14 @@ def get_class(dotted: str):
         raise
 
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = ("bfloat16", "float32")
 
 
 def torch_dtype(dtype):
     """A model's compute dtype in the port's terms: None, a torch dtype, or the
-    name of bfloat16 / float32 as a JAX spec or jnp writes it."""
+    name of bfloat16 / float32 as a JAX spec or jnp writes it. (torch is
+    imported here, so that building a dataset from a spec needs none.)"""
+    import torch
     if dtype is None or isinstance(dtype, torch.dtype):
         return dtype
     name = dtype if isinstance(dtype, str) else getattr(
@@ -88,7 +88,7 @@ def torch_dtype(dtype):
     if name not in _DTYPES:
         raise ValueError(f"model arg dtype={dtype!r}: the port computes in "
                          f"{sorted(_DTYPES)}")
-    return _DTYPES[name]
+    return getattr(torch, name)
 
 
 def _carry_over_args(args: dict) -> tuple[dict, str | None]:

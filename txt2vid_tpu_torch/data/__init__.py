@@ -1,11 +1,11 @@
 """Host-side data for the port (counterpart of txt2vid_tpu/data/__init__.py):
-caption vocabulary, the `.npy` video dataset, collation and a threaded loader.
+caption vocabulary, the video dataset, collation and a threaded loader.
 
 - VideoDataset indexes a {video_id: [captions]} pickle into (video, caption)
   pairs, skipping missing videos, and reads `<vid>.npy` uint8 (T, H, W, C)
-  clips, picking `num_frames` evenly spaced (or sorted random) frames.
-  Directories of `.jpg`/`.png` frames need PIL, which the port does not use:
-  they raise NotImplementedError.
+  clips or directories of `<n>.jpg`/`.png` frames (the original code's cache
+  layout, read with PIL), picking `num_frames` evenly spaced (or sorted
+  random) frames.
 - collate pads captions to a static `max_caption_len` and returns lengths.
 - Loader is a shuffling epoch iterator whose worker threads keep
   num_workers + 1 batches decoded ahead; it yields host numpy batches (uint8
@@ -46,16 +46,22 @@ def pick_frames(num_available: int, num_frames: int = 16, random: bool = False,
 def load_video_frames(path: Path, num_frames: int = 16, frame_size: int | None = None,
                       num_channels: int = 3, random_frames: bool = False, rng=None,
                       normalize: bool = True) -> np.ndarray:
-    """A cached `<vid>.npy` clip as (T, H, W, C): float32 in [-1, 1], or uint8
-    with normalize=False (:108-132)."""
-    p = path if path.suffix == ".npy" else path.with_suffix(".npy")
-    if not p.exists():
-        raise NotImplementedError(
-            f"{path}: directories of .jpg/.png frames need PIL, which the port does not "
-            "use; cache the clips as <vid>.npy uint8 (T, H, W, C)")
-    arr = np.load(p, mmap_mode="r")
-    idx = pick_frames(arr.shape[0], num_frames, random_frames, rng)
-    frames = np.asarray(arr[idx])
+    """A cached clip as (T, H, W, C): float32 in [-1, 1], or uint8 with
+    normalize=False (:108-132). The clip is `<vid>.npy` uint8 (T, H, W, C),
+    or a directory of `<n>.jpg` / `<n>.png` frames taken in the order of n
+    (`.jpg` where both exist), read with PIL."""
+    if path.suffix == ".npy" or path.with_suffix(".npy").exists():
+        arr = np.load(path if path.suffix == ".npy" else path.with_suffix(".npy"),
+                      mmap_mode="r")
+        idx = pick_frames(arr.shape[0], num_frames, random_frames, rng)
+        frames = np.asarray(arr[idx])
+    else:
+        from PIL import Image        # only this layout needs PIL
+        names = sorted(int(f.stem) for f in path.iterdir() if f.suffix in (".jpg", ".png"))
+        idx = pick_frames(len(names), num_frames, random_frames, rng)
+        files = [path / f"{names[i]}.jpg" for i in idx]
+        frames = np.stack([np.asarray(Image.open(f if f.exists() else f.with_suffix(".png")))
+                           for f in files])
     if frames.ndim == 3:
         frames = frames[..., None]
     return transform_frames(frames, frame_size, num_channels, normalize=normalize)
@@ -90,8 +96,8 @@ def transform_frames(frames: np.ndarray, frame_size: int | None,
 
 
 class VideoDataset:
-    """(video, caption) pairs over a directory of `<vid>.npy` clips and a
-    captions pickle (:166-203)."""
+    """(video, caption) pairs over a directory of `<vid>.npy` clips or frame
+    directories and a captions pickle (:166-203)."""
 
     def __init__(self, video_dir=None, vocab=None, captions=None, num_frames=16,
                  frame_size=None, num_channels=3, random_frames=0, normalize=True):
@@ -190,7 +196,7 @@ class BatchLoader(Loader):
 
 def my_dataset(data=None, vocab=None, anno=None, transform=None, random_frames=0,
                num_frames=16, frame_size=None, num_channels=3, normalize=True, **_):
-    """The `.npy` video dataset factory of the config surface (:329-334)."""
+    """The video dataset factory of the config surface (:329-334)."""
     return VideoDataset(video_dir=data, vocab=vocab, captions=anno, num_frames=num_frames,
                         frame_size=frame_size, num_channels=num_channels,
                         random_frames=random_frames, normalize=normalize)

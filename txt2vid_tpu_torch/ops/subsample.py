@@ -3,7 +3,9 @@
 Videos are (B, T, ...) with batch and time leading, so these ops serve both the
 JAX layout (B, T, H, W, C) at the public boundaries and the generator's
 (B, T, C, H, W) inside. The random temporal phase `bt` is an argument: the
-caller draws it (or replays the JAX package's draw in a parity test).
+caller draws it (or replays the JAX package's draw in a parity test), and so
+are subsample_rect's crop offsets, or they are drawn from the caller's
+torch.Generator.
 """
 
 import torch
@@ -25,6 +27,32 @@ def subsample_batch_half(c: torch.Tensor, sn: int = 2) -> torch.Tensor:
     """Batch-only decimation, keeping cond vectors aligned with a subsampled
     batch."""
     return c[::sn]
+
+
+def subsample_rect(x: torch.Tensor, width: int, height: int, depth: int | None = None,
+                   offsets=None, generator: torch.Generator | None = None) -> torch.Tensor:
+    """A spatial crop of (B, H, W, C) to (B, height, width, C), or a
+    spatio-temporal one of (B, T, H, W, C) to (B, depth, height, width, C)
+    (depth None keeps all T frames) (subsample.py:35-51). `offsets` are the
+    crop's start, (py, px) or (pz, py, px); without them each is drawn
+    uniformly from its valid range with `generator`, in the order z, y, x.
+    Returns a view of x."""
+    if x.dim() == 4:
+        sizes, axes = (height, width), (1, 2)
+    elif x.dim() == 5:
+        sizes, axes = (x.shape[1] if depth is None else depth, height, width), (1, 2, 3)
+    else:
+        raise ValueError(f"subsample_rect takes a 4-D or 5-D tensor, not {x.dim()}-D")
+    limits = [x.shape[a] - s for a, s in zip(axes, sizes)]
+    if any(lim < 0 for lim in limits):
+        raise ValueError(f"crop {sizes} larger than {tuple(x.shape[a] for a in axes)}")
+    if offsets is None:
+        offsets = [int(torch.randint(0, lim + 1, (), generator=generator)) for lim in limits]
+    if len(offsets) != len(sizes) or not all(0 <= o <= lim for o, lim in zip(offsets, limits)):
+        raise ValueError(f"offsets {tuple(offsets)} outside [0, {tuple(limits)}]")
+    for a, o, s in zip(axes, offsets, sizes):
+        x = x.narrow(a, int(o), s)
+    return x
 
 
 def resize_nearest(x: torch.Tensor, size: int) -> torch.Tensor:

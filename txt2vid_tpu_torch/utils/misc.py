@@ -1,8 +1,10 @@
-"""Small helpers (the port's own copies of txt2vid_tpu/utils/misc.py's)."""
+"""Small helpers (the port's own copies of txt2vid_tpu/utils/misc.py's).
+torch is imported where it is used, so that the host tools that import
+these helpers start without it."""
+
+from __future__ import annotations
 
 from pathlib import Path
-
-import torch
 
 
 def ensure_exists(path) -> None:
@@ -21,6 +23,7 @@ def gen_perm_device(n: int, p=None, generator: torch.Generator | None = None) ->
     drawn from `generator`. Every n-cycle moves every element. n <= 1 has no
     derangement; the identity is returned. Returns int64 on p's device (the
     CPU when drawn)."""
+    import torch
     if n <= 1:
         return torch.arange(n)
     if p is None:
