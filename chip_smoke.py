@@ -188,6 +188,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    seconds and bytes), served (20 captions, uint8 within 1 of the source
    modules' service, K1 launched) and trained one --weights step from,
    finite at 17 / 13 / 13. (c) subsample_rect on the card against the CPU.
+13. parallel (after ingest): the parallel layer on one card. (a) The ring
+   attention of sp ranks (ops/ring_attention.py) as a loop over its K1
+   blocks, sp in 2 and 4, float32 and bf16, at the cond-128 and 64-px
+   generators' and discriminators' shapes (RING_SHAPES): the merge within
+   2e-5 of one K1 over all of M in float32, in bf16 an RMS error against
+   float64 at most 2x one bf16 K1's, the blockwise recompute backward within
+   1e-3 of K2/K3's gradients; K1 sp^2 times per check. (b) Phase cli's
+   command line for 2 steps as a process under an NCCL group of world size
+   1 (--multihost over a tcp:// coordinator) and as one without a group,
+   cuDNN deterministic: the same losses, the one checkpoint (and .ema) byte
+   for byte, the NCCL collectives the CLI counts (its `collectives:` line)
+   non-zero. (c) scripts/run_reddit.sh's configuration (128 px, 32 frames,
+   frame sizes 16/32/64/128, bf16, batch 32, --sp 1) for 2 steps under the
+   NCCL group of one, in-process: finite, 17 / 13 / 13 launches a step,
+   each step's ms and the peak memory, the attention shapes it gives, and
+   (a)'s check at them. Its launches are the kernels line's
+   "parallel_launches".
 
 Each phase prints its seconds. The kernels line holds each kernel twice: its
 float32 instantiations (K1 at the serving shape, K2 and K3 at the training
@@ -256,7 +273,7 @@ from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
     SUPPORTED_DV, attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
     attention_bwd_dq_reference, attention_delta, dkv_splits, dq_splits, fused_attention,
-    fused_attention_reference, occupancy, sm_count)
+    fused_attention_bwd, fused_attention_reference, occupancy, sm_count)
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
 from txt2vid_tpu_torch.ops.optim import AdamStorage
 from txt2vid_tpu_torch.serve import GeneratorService
@@ -3506,6 +3523,248 @@ def _phase_ingest(root, seed):
     return {"launches": launches, "import_serve_launches": import_launches}
 
 
+# ---------------------------------------------------------------- phase parallel
+
+# (B, N, M, d, dv) of the ring's block check: the cond-128 and 64-px
+# generators' and the 64-px and cond-128 discriminators' attention
+RING_SHAPES = [COND128_SHAPE, TRAIN_SHAPE, D_TRAIN_SHAPES[0], COND128_D_SHAPES[1]]
+RING_SPS = (2, 4)
+# float32: merged K1 blocks against one K1 over all of M, max |diff|
+# (tests/test_ring_attention.py:31); bfloat16: an RMS error against float64
+# at most RING_BF16_FACTOR times one bf16 K1's (as phase float64 holds the
+# backward's RMS error, OWN_RMS_TOL; the largest single error is printed:
+# each block's o rounded to bf16 before the merge, the ring's semantics,
+# puts it up to 2.3x one K1's); the blockwise recompute backward against
+# K2/K3's gradients of one K1, max |diff| over the gradient's max |.|
+# (PERF.md section 2's float32 step tolerance, 1e-3 of the leaf scale)
+RING_F32_TOL, RING_BF16_FACTOR, RING_BWD_TOL = 2e-5, 2.0, 1e-3
+REDDIT_CLIPS, REDDIT_BATCH, REDDIT_FRAMES = 64, 32, 32
+REDDIT_FRAME_SIZES = (16, 32, 64, 128)
+REDDIT_G = json.dumps({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
+                       "args": {"width": 128, "height": 128, "num_frames": REDDIT_FRAMES}})
+# a process for a CLI run compared bit for bit: cuDNN held to deterministic
+# algorithms, as phase levers holds it
+DETERMINISTIC_CLI = ("import runpy, sys, torch; torch.backends.cudnn.deterministic = True; "
+                     "torch.backends.cudnn.benchmark = False; sys.argv[0] = 'gan'; "
+                     "runpy.run_module('txt2vid_tpu_torch.train.gan', run_name='__main__')")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def float64_output(theta, phi, g, chunk=16):
+    """softmax(theta phi^T) g in float64, `chunk` batch items at a time."""
+    return torch.cat([torch.softmax(t.double() @ f.double().transpose(1, 2), -1) @ v.double()
+                      for t, f, v in zip(theta.split(chunk), phi.split(chunk), g.split(chunk))])
+
+
+def ring_check(shape, sp, dtype, seed):
+    """(a): the ring of sp ranks as a loop over K1's blocks on the card,
+    merged by the ring's rule, against one K1 over all of M; in float32
+    also the blockwise recompute backward against K2/K3 from one K1's o and
+    lse. Returns the record."""
+    from txt2vid_tpu_torch.ops.ring_attention import ring_attention_local, ring_backward_local
+    theta, phi, g = attention_inputs(shape, dtype, seed)
+    before = fused_attention.launches
+    o, o32, lse = ring_attention_local(theta, phi, g, sp)
+    launched = fused_attention.launches - before
+    check(launched == sp * sp, f"parallel: the ring launched K1 {launched} times, not {sp * sp}")
+    one, one_lse = fused_attention(theta, phi, g, return_lse=True)
+    rec = {"shape": list(shape), "sp": sp, "dtype": str(dtype).split(".")[-1],
+           "k1_launches": launched}
+    if dtype == torch.float32:
+        rec["max_abs_err"] = float((o - one).abs().max())
+        rec["lse_err"] = float((lse - one_lse).abs().max())
+        check(rec["max_abs_err"] <= RING_F32_TOL and rec["lse_err"] <= RING_F32_TOL,
+              f"parallel: the ring's merge at {shape} sp={sp} is {rec['max_abs_err']} "
+              f"(lse {rec['lse_err']}) from one K1")
+        do = torch.randn(o.shape, generator=torch.Generator(o.device).manual_seed(seed + 1),
+                         device=o.device)
+        ring = ring_backward_local(theta, phi, g, o32, lse, do, sp)
+        kern = fused_attention_bwd(theta, phi, g, one, one_lse, do)
+        rec["bwd_err"] = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(ring, kern)]
+        check(max(rec["bwd_err"]) <= RING_BWD_TOL,
+              f"parallel: the ring's backward at {shape} sp={sp}: {rec['bwd_err']}")
+        del ring, kern
+    else:
+        ref = float64_output(theta, phi, g)
+        rec["f64_err"], rec["one_f64_err"] = error_stats(ref, o), error_stats(ref, one)
+        check(rec["f64_err"]["rms"] <= RING_BF16_FACTOR * rec["one_f64_err"]["rms"],
+              f"parallel: the bf16 ring at {shape} sp={sp} is {rec['f64_err']} from float64, "
+              f"one K1 {rec['one_f64_err']}")
+    return rec
+
+
+def ring_checks(shapes, seed, dtypes=(torch.float32, torch.bfloat16)):
+    out = []
+    for shape in shapes:
+        for sp in RING_SPS:
+            if shape[1] % sp or shape[2] % sp:
+                continue
+            for dtype in dtypes:
+                out.append(ring_check(shape, sp, dtype, seed))
+                print(f"phase parallel: a: {json.dumps(out[-1])}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_collectives(text):
+    found = re.findall(r"collectives: (\{.*\})", text)
+    check(found, "parallel: the CLI under a process group printed no collective counts")
+    return json.loads(found[-1])
+
+
+def run_cli_process(argv, what):
+    proc = subprocess.run([sys.executable, "-c", DETERMINISTIC_CLI, *argv],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"parallel: {what} exited {proc.returncode}:\n"
+                                f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return proc.stdout + proc.stderr
+
+
+def parallel_nccl_cli(root, seed):
+    """(b): phase cli's command line for 2 steps as a process under an NCCL
+    group of world size 1 (--multihost over a tcp:// coordinator) and as one
+    without a group: the same losses and checkpoint bytes, NCCL collectives
+    counted, one checkpoint written."""
+    root.mkdir(parents=True)
+    sents = generate_examples(root / "videos", root / "sent.pickle", num_examples=2 * bench.BATCH,
+                              frame_size=(64, 64), num_frames=16, seed=seed, num_channels=3)
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab([c for v in sents.values() for c in v]), f)
+    texts, files = {}, {}
+    for what, extra in (("plain", []), ("nccl", ["--multihost", "--coordinator",
+                                                  f"127.0.0.1:{free_port()}",
+                                                  "--num_processes", "1", "--process_id", "0"])):
+        out = root / what
+        t0 = time.perf_counter()
+        texts[what] = run_cli_process(
+            cli_argv(root, seed, "--epochs", "1", "--save_model_period", "2", "--out", str(out),
+                     "--out_samples", str(out / "samples"), *extra), what)
+        files[what] = sorted(p.name for p in out.glob("iter_*") if p.suffix != ".ema")
+        print(f"phase parallel: b: {what}: 2 steps in {time.perf_counter() - t0:.2f} s, "
+              f"checkpoints {files[what]}")
+    check(files["nccl"] == files["plain"] and len(files["nccl"]) == 1,
+          f"parallel: checkpoints {files}")
+    same = all((root / "nccl" / n).read_bytes() == (root / "plain" / n).read_bytes()
+               for n in [files["nccl"][0], files["nccl"][0] + ".ema"])
+    losses = {k: re.findall(r"Iter \d+, Loss_D: \S+ Loss_G: \S+", t) for k, t in texts.items()}
+    check(len(losses["nccl"]) == 2 and losses["nccl"] == losses["plain"],
+          f"parallel: the losses differ: {losses}")
+    check(same, "parallel: the NCCL world-1 checkpoint differs from the one without a group")
+    check("multihost: process 0/1" in texts["nccl"] and "(nccl)" in texts["nccl"],
+          "parallel: the NCCL group was not started")
+    coll = cli_collectives(texts["nccl"])
+    nccl = sum(n for k, n in coll.items() if k.startswith("nccl/"))
+    check(nccl > 0, f"parallel: no collective ran through NCCL: {coll}")
+    print(f"phase parallel: b: losses {losses['nccl']} and checkpoint {files['nccl'][0]} (and "
+          f".ema) bit for bit with and without the NCCL group; collectives {coll}")
+    return {"collectives": coll, "losses": losses["nccl"]}
+
+
+def parallel_reddit(root, seed):
+    """(c): scripts/run_reddit.sh's configuration at full width (128 px, 32
+    frames, frame sizes 16/32/64/128, bf16, batch 32) for 2 steps under an
+    NCCL group of world size 1 with --sp 1, in-process; the attention
+    shapes it gives and (a)'s check at them."""
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    sents = generate_examples(root / "videos", root / "sent.pickle", num_examples=REDDIT_CLIPS,
+                              frame_size=(REDDIT_FRAME_SIZES[-1],) * 2,
+                              num_frames=REDDIT_FRAMES, seed=seed, num_channels=3)
+    with open(root / "vocab.pickle", "wb") as f:
+        pickle.dump(build_vocab([c for v in sents.values() for c in v]), f)
+    print(f"phase parallel: c: {REDDIT_CLIPS} clips of {REDDIT_FRAMES}x128x128x3 in "
+          f"{time.perf_counter() - t0:.2f} s")
+    data = json.dumps({"class": "txt2vid_tpu.data.my_dataset",
+                       "args": {"data": str(root / "videos"), "num_frames": REDDIT_FRAMES}})
+    argv = ["--G", REDDIT_G, "--D", "txt2vid_tpu.models.tganv2_cond.MultiScaleDiscrim",
+            "--sent", "txt2vid_tpu.models.txt.Seq2Seq", "--data", data,
+            "--anno", str(root / "sent.pickle"), "--vocab", str(root / "vocab.pickle"),
+            "--frame_sizes", *map(str, REDDIT_FRAME_SIZES), "--subsample_input",
+            "--num_channels", "3", "--bf16", "--D_loss", "txt2vid_tpu.gan.losses.RSGANLoss",
+            "--G_lr", "0.0002", "--D_lr", "0.0002", "--G_beta2", "0.999", "--D_beta2", "0.999",
+            "--batch_size", str(REDDIT_BATCH), "--epochs", "1", "--seed", str(seed),
+            "--log_period", "1", "--save_model_period", "0", "--save_example_period", "0",
+            "--workers", "2", "--out", str(root / "out"), "--out_samples",
+            str(root / "out" / "samples"), "--sp", "1", "--multihost", "--coordinator",
+            f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id", "0"]
+    shapes = {}
+    auto = layers_mod.attention_core_auto
+
+    def recording(theta, phi, g, use_kernel=True):
+        key = ((theta.shape[0], theta.shape[1], phi.shape[1], theta.shape[2], g.shape[2]),
+               str(g.dtype).split(".")[-1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return auto(theta, phi, g, use_kernel)
+
+    from txt2vid_tpu_torch.parallel.collectives import COUNTS, reset_counts
+    layers_mod.attention_core_auto = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    zero_counts()
+    try:
+        with StepRecorder() as rec:
+            train_gan.main(train_gan.build_parser().parse_args(argv))
+    finally:
+        layers_mod.attention_core_auto = auto
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(not torch.distributed.is_initialized(), "parallel: main left its process group")
+    check(len(rec.steps) == 2, f"parallel: {len(rec.steps)} steps, not 2")
+    for st in rec.steps:
+        check(all(math.isfinite(v) for v in st["metrics"].values()),
+              f"parallel: a run_reddit.sh step is not finite: {st['metrics']}")
+        check(st["launches"] == TRAIN_LAUNCHES,
+              f"parallel: a run_reddit.sh step launched {st['launches']}, not {TRAIN_LAUNCHES}")
+    check(launches["attention_fwd"] > 0, "parallel: K1 was not launched")
+    coll = {f"{b}/{op}": n for (b, op), n in sorted(COUNTS.items())}
+    check(sum(n for k, n in coll.items() if k.startswith("nccl/")) > 0,
+          f"parallel: no NCCL collective in run_reddit.sh's run: {coll}")
+    attn = [[*shape, dtype, n] for (shape, dtype), n in sorted(shapes.items())]
+    print(f"phase parallel: c: run_reddit.sh's configuration, 2 steps: ms "
+          f"{[round(s['ms'], 2) for s in rec.steps]}, peak memory {peak} bytes, launches "
+          f"{launches} (per step {TRAIN_LAUNCHES}), collectives {coll}; attention "
+          f"(B, N, M, d, dv, dtype, calls over the 2 steps): {attn}")
+    ring_shapes = sorted({shape for (shape, _), _n in shapes.items()
+                          if SUPPORTED_DV.get(shape[3]) == shape[4]})
+    return {"launches": launches, "ms": [s["ms"] for s in rec.steps], "peak_bytes": peak,
+            "attention_shapes": attn, "ring_shapes": ring_shapes}
+
+
+def phase_parallel(seed):
+    """The parallel layer on one card: (a) the ring's block math at the
+    flagships' attention shapes, (b) the training CLI under an NCCL group of
+    world size 1 against the same run without one, (c) run_reddit.sh's
+    configuration for 2 steps under that group and (a) at its shapes.
+    Returns (c)'s launch counts, the main path of the phase."""
+    t0 = time.perf_counter()
+    before = fused_attention.launches
+    ring = ring_checks(RING_SHAPES, seed)
+    print(f"phase parallel: a: {len(ring)} checks at {RING_SHAPES} in "
+          f"{time.perf_counter() - t0:.2f} s, K1 launched {fused_attention.launches - before} "
+          "times by the ring loops and their one-K1 references")
+    root = smoke_dir("parallel_smoke_")
+    try:
+        t1 = time.perf_counter()
+        nccl = parallel_nccl_cli(root / "cli", seed)
+        print(f"phase parallel: b: {time.perf_counter() - t1:.2f} s")
+        t1 = time.perf_counter()
+        reddit = parallel_reddit(root / "reddit", seed)
+        print(f"phase parallel: c: {time.perf_counter() - t1:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    reddit["ring"] = ring_checks(reddit["ring_shapes"], seed)
+    reddit["nccl_collectives"] = nccl["collectives"]
+    return reddit
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3553,6 +3812,7 @@ def main():
     families = timed("families", phase_families, args.seed)
     timed("txt", phase_txt, args.seed)
     ingest = timed("ingest", phase_ingest, args.seed)
+    parallel = timed("parallel", phase_parallel, args.seed)
     for r in records + bf16_records:
         r["tc_instructions"] = tc[r["name"]]
     records[0]["launches"] = serve_launches
@@ -3590,6 +3850,9 @@ def main():
         r["launches_per_step"] = TRAIN_LAUNCHES[r["name"]]
         r["cond128_launches"] = bf16["cond128"][r["name"]]
     bf16_records[0]["serve_launches"] = bf16["serve"]
+    # phase parallel's main path: run_reddit.sh's 2 bf16 steps under the NCCL group
+    for r in records + bf16_records:
+        r["parallel_launches"] = parallel["launches"][r["name"]]
     check(all(r["launches"] for r in records + bf16_records),
           "a kernel was not launched on its main path")
     print(smi)

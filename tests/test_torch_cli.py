@@ -8,6 +8,7 @@ package's, the spec resolution and the flags that raise.
 
 import json
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -165,7 +166,23 @@ def test_nan_abort_exits_42_and_keeps_the_last_good_checkpoint(data, tmp_path, m
 
 @pytest.mark.parametrize("flag", [["--sp", "2"], ["--fsdp", "2"], ["--multihost"]])
 def test_unported_flags_raise_naming_themselves(data, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    """Each multi-device flag is accepted or refused with the JAX CLI's
+    message: on one process --sp 2 and --fsdp 2 ask for more devices than
+    there are (make_mesh's assertion, parallel/mesh.py:43-44); --multihost
+    with a coordinator trains as a world of one (gloo) and leaves no process
+    group behind."""
+    if flag[0] == "--multihost":
+        import socket
+        import torch.distributed as dist
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        gan.cli(argv(data, tmp_path, *flag, "--coordinator", f"127.0.0.1:{port}",
+                     "--num_processes", "1", "--process_id", "0", "--epochs", "1"))
+        assert _iters(tmp_path) == [3, 4] and not dist.is_initialized()
+        return
+    sizes = "sp=2 * fsdp=1" if flag[0] == "--sp" else "sp=1 * fsdp=2"
+    with pytest.raises(ValueError, match=re.escape(f"1 devices not divisible by {sizes}")):
         gan.cli(argv(data, tmp_path, *flag))
 
 

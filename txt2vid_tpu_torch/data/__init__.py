@@ -15,6 +15,7 @@ caption vocabulary, the video dataset, collation and a threaded loader.
   get_loader picks it for them.
 - cifar10_dataset (data/cifar10.py) yields CIFAR-10 images without captions,
   for the image GAN.
+- ShardedView is one data-parallel rank's strided share of a dataset.
 """
 
 import pickle
@@ -26,9 +27,9 @@ import numpy as np
 from txt2vid_tpu_torch.data.vocab import (Vocab, build_vocab, encode_caption, load_pickle,
                                          pad_captions)
 
-__all__ = ["Vocab", "build_vocab", "encode_caption", "load_pickle", "pad_captions", "VideoDataset",
-           "transform_frames", "collate", "Loader", "BatchLoader", "get_loader",
-           "my_dataset", "cifar10_dataset"]
+__all__ = ["ShardedView", "Vocab", "build_vocab", "encode_caption", "load_pickle",
+           "pad_captions", "VideoDataset", "transform_frames", "collate", "Loader",
+           "BatchLoader", "get_loader", "my_dataset", "cifar10_dataset"]
 
 
 def pick_frames(num_available: int, num_frames: int = 16, random: bool = False,
@@ -208,6 +209,42 @@ def cifar10_dataset(data=None, vocab=None, anno=None, transform=None, frame_size
     local `cifar-10-batches-py` pickles (data/cifar10.py)."""
     from txt2vid_tpu_torch.data.cifar10 import Cifar10Dataset
     return Cifar10Dataset(data, frame_size=frame_size, num_channels=num_channels)
+
+
+class ShardedView:
+    """One rank's share of a dataset for data-parallel feeding
+    (data/__init__.py:343-376): local item i is global item
+    i * num_shards + shard (strided, so every rank sees the same label and
+    length distribution), the ragged tail dropped so every rank runs the
+    same number of batches per epoch (a short rank would hang the others'
+    collectives). Item-level datasets (__getitem__) and batch-level ones
+    (.get_batch) both work; other attributes are the base dataset's."""
+
+    def __init__(self, dataset, shard: int, num_shards: int):
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} outside [0, {num_shards})")
+        self.dataset = dataset
+        self.shard = shard
+        self.num_shards = num_shards
+
+    def __len__(self):
+        return len(self.dataset) // self.num_shards
+
+    def _global(self, i):
+        return int(i) * self.num_shards + self.shard
+
+    def __getitem__(self, i):
+        return self.dataset[self._global(i)]
+
+    def __getattr__(self, name):
+        # get_batch exists only when the base dataset has one (get_loader
+        # picks BatchLoader by hasattr)
+        attr = getattr(self.dataset, name)
+        if name == "get_batch":
+            def wrapped(idxs, *a, **kw):
+                return attr(np.asarray([self._global(i) for i in idxs]), *a, **kw)
+            return wrapped
+        return attr
 
 
 def get_loader(dset=None, batch_size=64, val=False, num_workers=4, max_caption_len=32,

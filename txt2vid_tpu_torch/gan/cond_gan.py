@@ -49,6 +49,7 @@ from txt2vid_tpu_torch.data import load_pickle
 from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
 from txt2vid_tpu_torch.gan.losses import gradient_penalty, multiscale_gradient_penalty
 from txt2vid_tpu_torch.models.layers import frozen_batch_stats
+from txt2vid_tpu_torch.ops import batch_group
 from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.utils.checkpoint import restore_state
 
@@ -120,7 +121,11 @@ class CondGan:
     @staticmethod
     def make_fake_conds(cond_scales, perm):
         """Mismatched captions: the scale-0 cond permuted by the derangement
-        `perm` (utils.misc.gen_perm_device), truncated to each scale's batch."""
+        `perm` (utils.misc.gen_perm_device), truncated to each scale's batch;
+        of the global batch when it is split over ranks (ops.batch_group)."""
+        group = batch_group.group()
+        if group is not None:
+            return group.fake_conds(cond_scales, perm)
         fake0 = cond_scales[0][perm.to(cond_scales[0].device)]
         return [fake0[: c.shape[0]] for c in cond_scales]
 

@@ -9,14 +9,35 @@ hinge math, and the RaSGAN typo fixed. Losses are float32.
 The gradient penalties take their interpolation weights alpha from the
 caller (one per batch element): JAX's jax.random.uniform stream cannot be
 reproduced in torch, so a test pins alpha on both sides.
+
+Every batch mean goes through `_mean` and the relativistic losses' inner
+mean(fake) / mean(real) through `_shared_mean`: in a train step whose batch
+is split over data-parallel ranks (ops/batch_group.py) the first is this
+rank's share of the global mean (its partial sum over the global count; the
+ranks' gradients sum to the global one) and the second the global mean on
+every rank, its gradient reaching every rank's items.
 """
 
 import torch
 import torch.nn.functional as F
 
+from txt2vid_tpu_torch.ops import batch_group
+
+
+def _mean(x):
+    group = batch_group.group()
+    return x.mean() if group is None else group.mean(x)
+
+
+def _shared_mean(x):
+    group = batch_group.group()
+    return x.mean() if group is None else group.shared_mean(x)
+
 
 def _bce_logits(logits, labels):
-    return F.binary_cross_entropy_with_logits(logits.float(), labels)
+    if batch_group.group() is None:
+        return F.binary_cross_entropy_with_logits(logits.float(), labels)
+    return _mean(F.binary_cross_entropy_with_logits(logits.float(), labels, reduction="none"))
 
 
 class MixedGanLoss:
@@ -55,20 +76,20 @@ class HingeGanLoss:
         self.margin = margin
 
     def discrim_loss(self, fake=None, real=None):
-        return torch.relu(self.margin - real.float()).mean() + fake.float().mean()
+        return _mean(torch.relu(self.margin - real.float())) + _mean(fake.float())
 
     def gen_loss(self, fake=None, real=None):
-        return torch.relu(self.margin - fake.float()).mean()
+        return _mean(torch.relu(self.margin - fake.float()))
 
 
 class WassersteinGanLoss:
     """WGAN critic losses."""
 
     def discrim_loss(self, fake=None, real=None):
-        return -(real.float().mean() - fake.float().mean())
+        return -(_mean(real.float()) - _mean(fake.float()))
 
     def gen_loss(self, fake=None, real=None):
-        return -fake.float().mean()
+        return -_mean(fake.float())
 
 
 class RSGANLoss:
@@ -95,14 +116,14 @@ class RaSGANLoss:
             raise ValueError("only the BCE form exists (binary logits)")
 
     def discrim_loss(self, fake=None, real=None):
-        a = real - fake.mean()
-        b = fake - real.mean()
+        a = real - _shared_mean(fake)
+        b = fake - _shared_mean(real)
         return (_bce_logits(a, torch.ones_like(a, dtype=torch.float32))
                 + _bce_logits(b, torch.zeros_like(b, dtype=torch.float32))) / 2
 
     def gen_loss(self, fake=None, real=None):
-        a = real - fake.mean()
-        b = fake - real.mean()
+        a = real - _shared_mean(fake)
+        b = fake - _shared_mean(real)
         return (_bce_logits(a, torch.zeros_like(a, dtype=torch.float32))
                 + _bce_logits(b, torch.ones_like(b, dtype=torch.float32))) / 2
 
@@ -112,13 +133,13 @@ class RaLSGANLoss:
 
     def discrim_loss(self, fake=None, real=None):
         fake, real = fake.float(), real.float()
-        return (((real - fake.mean() - 1.0) ** 2).mean()
-                + ((fake - real.mean() + 1.0) ** 2).mean()) / 2
+        return (_mean((real - _shared_mean(fake) - 1.0) ** 2)
+                + _mean((fake - _shared_mean(real) + 1.0) ** 2)) / 2
 
     def gen_loss(self, fake=None, real=None):
         fake, real = fake.float(), real.float()
-        return (((real - fake.mean() + 1.0) ** 2).mean()
-                + ((fake - real.mean() - 1.0) ** 2).mean()) / 2
+        return (_mean((real - _shared_mean(fake) + 1.0) ** 2)
+                + _mean((fake - _shared_mean(real) - 1.0) ** 2)) / 2
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +179,9 @@ def gradient_penalty(d_fn, alpha, real_x, fake_x, real_cond=None, fake_cond=None
     total = sum(t.sum() for t in (uncond, cond_out) if t is not None)
     (grads,) = torch.autograd.grad(total, ix, create_graph=True, allow_unused=True)
     grads = torch.zeros_like(ix, dtype=torch.float32) if grads is None else grads.float()
-    norms = torch.sqrt(torch.sum(grads.reshape(b, -1) ** 2, dim=1) + 1e-12)
+    norms = torch.sqrt(torch.sum(grads.flatten(1) ** 2, dim=1) + 1e-12)
     per_sample = norms ** 2 if zero_center else (norms - 1.0) ** 2
-    return per_sample.sum() if combine == "sum" else per_sample.mean()
+    return per_sample.sum() if combine == "sum" else _mean(per_sample)
 
 
 def multiscale_gradient_penalty(d_fn_for_scale, alphas, real_xs, fake_xs,

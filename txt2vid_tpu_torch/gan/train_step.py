@@ -73,6 +73,14 @@ step discards them.
 
 The step counter `step` sets the draws and the lazy-GP phase; a restored
 checkpoint sets it (convert.jax_state_to_torch).
+
+Across ranks (`mesh`, a parallel.Mesh; None: one device, the path above
+alone) the batch is this rank's slice of the global batch, the draws are
+the global batch's, and parallel.Mesh.run sets up the global semantics
+around `run`: here each phase's gradients are summed over the data-parallel
+ranks before the norm and the clip (the GP's apart from the main loss's
+under gp_quarantine, whose finiteness reads the global penalty), and the
+optimizers step through the mesh, on this rank's shards under fsdp.
 """
 
 import contextlib
@@ -244,10 +252,13 @@ def _grads(params):
     return [p.grad for p in params]
 
 
-def _norm_and_clip(params, clip: float):
+def _norm_and_clip(params, clip: float, reduce=None):
     """The pre-clip global norm of the parameters' gradients (the metric),
-    then the in-step clip when `clip` is set."""
+    then the in-step clip when `clip` is set; `reduce` sums the gradients
+    over the data-parallel ranks first."""
     grads = _grads(params)
+    if reduce is not None:
+        reduce(grads)
     norm = global_norm(grads)
     if clip:
         clip_by_norm_(grads, norm, clip)
@@ -262,10 +273,13 @@ class TrainStep:
     loss_d (summed over D steps), loss_g (summed over G sub-steps),
     grad_norm_d, grad_norm_g (pre-clip global norms of the last update of
     each phase) and, with gp_quarantine and gp_lambda > 0, gp_quarantined
-    (int32). The optimizers hold `optimizer_params(gan, config)`."""
+    (int32). The optimizers hold `optimizer_params(gan, config)`. Under a
+    `mesh` the batch is this rank's slice and `draws` are the global batch's."""
 
-    def __init__(self, gan, losses, opt_g, opt_d, config: TrainConfig, seed: int = 0):
+    def __init__(self, gan, losses, opt_g, opt_d, config: TrainConfig, seed: int = 0,
+                 mesh=None):
         check_config(config)
+        self.mesh = mesh
         self.gan = gan
         self.losses = losses
         self.opt_g = opt_g
@@ -323,6 +337,19 @@ class TrainStep:
             total = total / cfg.discrim_steps
         return total
 
+    def _reduce(self, grads):
+        if self.mesh is not None:
+            self.mesh.reduce_grads_(grads)
+
+    def _norm_and_clip(self, params, reduce=True):
+        return _norm_and_clip(params, self.config.clip_grad, self._reduce if reduce else None)
+
+    def _opt_step(self, opt):
+        if self.mesh is None:
+            opt.step()
+        else:
+            self.mesh.optimizer_step(opt)
+
     def _d_step(self, d_params, real_scales, fakes, conds, perms, alphas):
         """One D update; `conds()` gives the cond pyramid of each loss (under
         end2end a fresh encoding). Returns (loss, pre-clip grad norm, zeroed
@@ -343,8 +370,10 @@ class TrainStep:
             g_gp = (torch.autograd.grad(loss_gp, d_params, allow_unused=True)
                     if loss_gp.requires_grad else [None] * len(d_params))
             g_gp = [torch.zeros_like(p) if g is None else g for p, g in zip(d_params, g_gp)]
+            self._reduce(_grads(d_params))
+            self._reduce(g_gp)
             quarantined = quarantine_nonfinite_(g_gp)
-            ok = torch.isfinite(loss_gp)
+            ok = torch.isfinite(loss_gp if self.mesh is None else self.mesh.sum_(loss_gp))
             quarantined = quarantined + (~ok).to(torch.int32)
             loss = loss + torch.where(ok, loss_gp, torch.zeros_like(loss_gp))
             torch._foreach_add_(_grads(d_params), g_gp)
@@ -352,13 +381,21 @@ class TrainStep:
             loss = self._d_loss(real_scales, fakes, conds, perms, alphas,
                                 gp_scale if gp_on else -1.0)
             loss.backward()
-        norm = _norm_and_clip(d_params, cfg.clip_grad)
-        self.opt_d.step()
+        norm = self._norm_and_clip(d_params, reduce=not (gp_on and cfg.gp_quarantine))
+        self._opt_step(self.opt_d)
         if cfg.gp_quarantine and cfg.gp_lambda > 0 and quarantined is None:
             quarantined = torch.zeros((), dtype=torch.int32, device=loss.device)
         return loss.detach(), norm, quarantined
 
     def __call__(self, batch, draws: Draws | None = None):
+        if self.mesh is not None:
+            cfg = self.config
+            return self.mesh.run(self, batch, draws, subsampled=cfg.subsample_input
+                                 and not cfg.img_model and len(cfg.frame_sizes) > 1)
+        return self.run(batch, draws)
+
+    def run(self, batch, draws: Draws | None = None):
+        """One step on `batch` with `draws` (drawn here when None)."""
         gan, cfg = self.gan, self.config
         x = batch["video"]
         if x.dtype == torch.uint8:
@@ -460,8 +497,8 @@ class TrainStep:
             loss_g = self._gen_loss(leaves, real_preds, cond_scales)
             dfakes = torch.autograd.grad(loss_g, leaves)
             torch.autograd.backward(fakes_live, dfakes)
-        grad_norm_g = _norm_and_clip(g_params, cfg.clip_grad)
-        self.opt_g.step()
+        grad_norm_g = self._norm_and_clip(g_params)
+        self._opt_step(self.opt_g)
         return loss_g.detach(), grad_norm_g
 
     def _g_steps(self, g_params, draws, real_scales, cond_scales, live_conds):
@@ -503,18 +540,18 @@ class TrainStep:
                 grads = torch.autograd.grad(loss, g_params, allow_unused=True)
             for p, g in zip(g_params, grads):
                 p.grad = g
-            grad_norm_g = _norm_and_clip(g_params, cfg.clip_grad)
-            self.opt_g.step()
+            grad_norm_g = self._norm_and_clip(g_params)
+            self._opt_step(self.opt_g)
             loss_g = loss.detach() if loss_g is None else loss_g + loss.detach()
         return loss_g, grad_norm_g
 
 
 def build_train_step(gan, losses, opt_g, opt_d, config: TrainConfig,
-                     seed: int = 0) -> TrainStep:
+                     seed: int = 0, mesh=None) -> TrainStep:
     """The port's counterpart of build_train_step: a TrainStep over `gan`
     (generator, discriminators, optional frozen caption encoder) and the two
-    optimizers (see `adam`)."""
-    return TrainStep(gan, losses, opt_g, opt_d, config, seed)
+    optimizers (see `adam`), on one device or, with `mesh`, on this rank."""
+    return TrainStep(gan, losses, opt_g, opt_d, config, seed, mesh)
 
 
 class ChunkStep:

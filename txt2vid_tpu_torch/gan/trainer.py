@@ -23,9 +23,16 @@ a poisoned state is never written; a burst of non-finite norms in the last
 
 Sample grids are PNG files written by a zlib encoder here (the port does not
 use PIL); the JAX package's `test()` writes its fakes as .jpg, the port as .png.
+
+Across ranks (the step's `mesh`, trainer.py:231-240,286-290,501-506) every
+rank runs the same loop on the same summed metrics, so the NaN abort fires
+on all of them at one iteration; only rank 0 writes checkpoints (each save
+gathers an fsdp-sharded state on every rank first) and the metrics writer,
+and at a world size above 1 the in-loop sample dumps are off.
 """
 
 import argparse
+import contextlib
 import struct
 import zlib
 from collections import deque
@@ -240,11 +247,16 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
     `dataset` yields batch dicts (chunks of k) already on the device;
     iterations continue from train_step.step (a restored checkpoint's)."""
     from txt2vid_tpu_torch.gan import ema as ema_mod
+    import torch.distributed as dist
+    from txt2vid_tpu_torch.train.setup import is_main_process
+    mesh = getattr(train_step, "mesh", None)
+    is_main = is_main_process()
+    multihost = dist.is_initialized() and dist.get_world_size() > 1
     ensure_exists(params.out)
     ensure_exists(params.out_samples)
 
     writer = None
-    if getattr(params, "use_writer", False):
+    if getattr(params, "use_writer", False) and is_main:
         from txt2vid_tpu_torch.utils.writer import MetricsWriter
         writer = MetricsWriter(params.out)
 
@@ -271,9 +283,12 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
         ema_checkpointer = AsyncCheckpointer(snapshot=snapshot)
 
     def save_checkpoint(path):
-        checkpointer.save(torch_state_to_jax(train_step), path)
-        if ema_checkpointer is not None:
-            ema_checkpointer.save(ema_mod.ema_tree(ema, gan.gen), ema_mod.ema_path(path))
+        with contextlib.nullcontext() if mesh is None else mesh.full_state():
+            if not is_main:
+                return
+            checkpointer.save(torch_state_to_jax(train_step), path)
+            if ema_checkpointer is not None:
+                ema_checkpointer.save(ema_mod.ema_tree(ema, gan.gen), ema_mod.ema_path(path))
 
     pending = []   # (iteration, device metrics)
     nan_abort = getattr(params, "nan_abort", True)
@@ -417,7 +432,11 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
                            discrim_loss.get(), gen_loss.get(), gn,
                            avg_iter.get(), avg_data_load.get()))
 
-            if params.save_example_period > 0 and (
+            if multihost and params.save_example_period > 0 and first:
+                status("multihost: in-loop sample dumps disabled (batches are "
+                       "host-sharded); sample offline from checkpoints via "
+                       "txt2vid_tpu_torch.sample")
+            if params.save_example_period > 0 and not multihost and (
                     (first and params.save_initial_examples)
                     or iteration % params.save_example_period < k_step):
                 if k_step > 1:      # a (k, B, ...) chunk: its last batch

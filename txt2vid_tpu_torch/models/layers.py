@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from txt2vid_tpu_torch.ops import batch_group
 from txt2vid_tpu_torch.ops.attention import attention_core_auto, kernel_disabled, kernels_disabled
 from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, kernel_init_
 from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
@@ -156,7 +157,13 @@ class _FlaxBatchNorm:
     float32, the statistics and the normalisation taken there, the result
     cast to `compute_dtype` (or the common type of input and parameters, so a
     float32 module in float32 is plain batch norm); the running statistics
-    stay float32."""
+    stay float32.
+
+    In a train step whose batch is split over data-parallel ranks
+    (ops/batch_group.py) training mode takes the global batch's statistics:
+    the ranks' counts, sums and sums of squares summed through an autograd
+    collective, the variance E[x^2] - E[x]^2 floored at 0 as flax's
+    BatchNorm forms it, and the running statistics move by those."""
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -173,7 +180,15 @@ class _FlaxBatchNorm:
             torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
         x32, weight, bias = promote(torch.promote_types(x.dtype, torch.float32),
                                     x, self.weight, self.bias)
-        if self.training:
+        group = batch_group.group()
+        if self.training and group is not None:
+            dims = (0, *range(2, x.dim()))
+            mean, var = group.batch_stats(x32, dims)
+            self._update_stats(mean.detach(), var.detach())
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            y = ((x32 - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
+                 * weight.reshape(shape) + bias.reshape(shape))
+        elif self.training:
             dims = (0, *range(2, x.dim()))
             self._update_stats(*reversed(torch.var_mean(x32.detach(), dim=dims,
                                                         correction=0)))
@@ -322,7 +337,7 @@ def init_kernels(module, generator, gain: float = 1.0):
 def _tokens(x):
     """(B, C, *spatial) -> contiguous (B, prod(spatial), C), rows in the JAX
     reshape order ((h, w) or (t, h, w))."""
-    return x.movedim(1, -1).reshape(x.shape[0], -1, x.shape[1]).contiguous()
+    return x.movedim(1, -1).flatten(1, -2).contiguous()
 
 
 class Attention(nn.Module):
@@ -352,7 +367,7 @@ class Attention(nn.Module):
                                 _tokens(max_pool_2d(self.phi(x))),
                                 _tokens(max_pool_2d(self.g(x))),
                                 use_kernel=self.use_kernel)          # (B, N, C/2)
-        o = o.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+        o = o.reshape(b, h, w, o.shape[-1]).permute(0, 3, 1, 2)
         return self.gamma.to(x.dtype) * self.o(o) + x
 
 
@@ -381,7 +396,7 @@ class Attention3d(nn.Module):
                                 _tokens(max_pool_3d(self.phi(x))),
                                 _tokens(max_pool_3d(self.g(x))),
                                 use_kernel=self.use_kernel)          # (B, N, C/2)
-        o = o.reshape(b, t, h, w, -1).permute(0, 4, 1, 2, 3)
+        o = o.reshape(b, t, h, w, o.shape[-1]).permute(0, 4, 1, 2, 3)
         return self.gamma.to(x.dtype) * self.o(o) + x
 
 

@@ -37,6 +37,7 @@ from txt2vid_tpu_torch.models.conv_lstm import ConvLSTM
 from txt2vid_tpu_torch.models.layers import Linear, RenderBlock, UpBlock, remat
 from txt2vid_tpu_torch.models.resnet3d import Resnet3D
 from txt2vid_tpu_torch.models.tgan import FrameSeedGenerator
+from txt2vid_tpu_torch.ops.batch_group import subsample_start
 from txt2vid_tpu_torch.ops.initializers import kernel_init_
 from txt2vid_tpu_torch.ops.subsample import subsample_video
 
@@ -138,7 +139,7 @@ class MultiScaleGen(nn.Module):
         for i, (block, render) in enumerate(zip(blocks, renders)):
             if i != 0 and train:
                 v = x.reshape((-1, num_frames) + x.shape[1:])
-                v = subsample_video(v, phases[i - 1])
+                v = subsample_video(v, phases[i - 1], start=subsample_start(i - 1))
                 num_frames //= 2
                 x = v.reshape((-1,) + v.shape[2:])
             x = remat(block, x) if self.remat and torch.is_grad_enabled() else block(x)

@@ -13,6 +13,13 @@ runs K1, its backward K2 and K3, re-forming the softmax from the saved row
 log-sum-exp. For CPU tensors both directions run the kernels' plain versions.
 `attention_core_auto` routes to FusedAttention unless `no_kernel()` is active
 or the caller passes use_kernel=False.
+
+Under a `sequence_parallel(sp)` block (the training CLI's --sp, set up by
+the parallel layer) `attention_core_auto` sends the attention to the ring
+over the group's ranks (ops/ring_attention.py) when N and M divide by its
+size, and otherwise falls through to the single-rank path, as the JAX
+package's dispatch does (attention.py:96-140); no_kernel() takes the plain
+attention before the ring.
 """
 
 import contextlib
@@ -24,6 +31,7 @@ from torch.autograd.function import once_differentiable
 from txt2vid_tpu_torch.ops.fused_attention import fused_attention, fused_attention_bwd
 
 _KERNEL_DISABLED = contextvars.ContextVar("txt2vid_no_kernel", default=False)
+_SEQUENCE_PARALLEL = contextvars.ContextVar("txt2vid_sequence_parallel", default=None)
 
 
 def attention_core(theta, phi, g):
@@ -87,11 +95,30 @@ def kernels_disabled() -> bool:
     return _KERNEL_DISABLED.get()
 
 
+@contextlib.contextmanager
+def sequence_parallel(sp):
+    """Inside the block attention_core_auto runs ring attention over `sp`
+    (ops.ring_attention.SpGroup) where the token counts divide by its size."""
+    token = _SEQUENCE_PARALLEL.set(sp)
+    try:
+        yield
+    finally:
+        _SEQUENCE_PARALLEL.reset(token)
+
+
 def attention_core_auto(theta, phi, g, use_kernel: bool = True):
     """The fused kernels (their plain versions for CPU tensors): through
     FusedAttention when a gradient is wanted, else K1 alone without the
-    log-sum-exp. `attention_core` under no_kernel() / use_kernel=False."""
-    if not use_kernel or _KERNEL_DISABLED.get():
+    log-sum-exp. `attention_core` under no_kernel() / use_kernel=False, and
+    for an empty batch. Under sequence_parallel, the ring (its blocks the
+    plain version with use_kernel=False)."""
+    if _KERNEL_DISABLED.get() or theta.shape[0] == 0:
+        return attention_core(theta, phi, g)
+    sp = _SEQUENCE_PARALLEL.get()
+    if sp is not None and theta.shape[1] % sp.size == 0 and phi.shape[1] % sp.size == 0:
+        from txt2vid_tpu_torch.ops.ring_attention import ring_attention
+        return ring_attention(theta, phi, g, sp, use_kernel)
+    if not use_kernel:
         return attention_core(theta, phi, g)
     if torch.is_grad_enabled() and (theta.requires_grad or phi.requires_grad
                                     or g.requires_grad):

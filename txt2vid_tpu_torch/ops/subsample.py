@@ -11,22 +11,27 @@ torch.Generator.
 import torch
 import torch.nn.functional as F
 
+from txt2vid_tpu_torch.ops.batch_group import subsample_start
 
-def subsample_video(x: torch.Tensor, bt: int, sn: int = 2, st: int = 2) -> torch.Tensor:
-    """(B, T, ...) -> (ceil(B/sn), T/st, ...): every sn-th batch element and the
-    frames bt, bt+st, ... (subsample.py:14-26). Requires st | T, 0 <= bt < st."""
+
+def subsample_video(x: torch.Tensor, bt: int, sn: int = 2, st: int = 2,
+                    start: int = 0) -> torch.Tensor:
+    """(B, T, ...) -> (ceil(B/sn), T/st, ...): every sn-th batch element from
+    `start` and the frames bt, bt+st, ... (subsample.py:14-26). Requires
+    st | T, 0 <= bt < st. A rank holding a slice of a global batch passes the
+    first local item whose global index is even (ops.batch_group)."""
     t = x.shape[1]
     if t % st:
         raise ValueError(f"frame count {t} not divisible by st={st}")
     if not 0 <= bt < st:
         raise ValueError(f"phase {bt} outside [0, {st})")
-    return x[::sn, bt::st]
+    return x[start::sn, bt::st]
 
 
-def subsample_batch_half(c: torch.Tensor, sn: int = 2) -> torch.Tensor:
+def subsample_batch_half(c: torch.Tensor, sn: int = 2, start: int = 0) -> torch.Tensor:
     """Batch-only decimation, keeping cond vectors aligned with a subsampled
     batch."""
-    return c[::sn]
+    return c[start::sn]
 
 
 def subsample_rect(x: torch.Tensor, width: int, height: int, depth: int | None = None,
@@ -84,7 +89,8 @@ def multiscale_pyramid(x: torch.Tensor, cond, frame_sizes, phases, subsample_inp
         if cond is not None:
             conds.append(cond)
         if subsample_input and i != n - 1:
-            x = subsample_video(x, phases[i])
+            start = subsample_start(i)
+            x = subsample_video(x, phases[i], start=start)
             if cond is not None:
-                cond = subsample_batch_half(cond)
+                cond = subsample_batch_half(cond, start=start)
     return xs, (conds if cond is not None else None)

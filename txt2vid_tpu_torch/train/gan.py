@@ -18,8 +18,22 @@ changed, plus the regularization of scripts/r9_session.sh):
 It runs on CUDA unless --device names another device (the tests pass
 --device cpu). --weights, --resume and --sent_weights read checkpoints the
 JAX package wrote, and the port's checkpoints open in the JAX package. A
-NanAbort exits with code 42. The multi-device flags (--sp, --fsdp,
---multihost) raise NotImplementedError naming the flag.
+NanAbort exits with code 42.
+
+Across cards (train/gan.py:55-68,144-153,239-253), one process per card:
+--multihost --coordinator host:port --num_processes n --process_id i, or
+torchrun's environment (`torchrun --nproc_per_node n -m
+txt2vid_tpu_torch.train.gan ...`), starts torch.distributed (NCCL; gloo on
+the CPU). The world is a (dp, sp, fsdp) mesh (parallel/mesh.py): --sp
+splits the non-local attention's tokens over a ring, --fsdp shards the
+state at rest, and dp is what is left. --batch_size is the global batch;
+each dp rank feeds batch_size / dp items of a ShardedView (ranks of one dp
+index feed the same ones). Only rank 0 writes checkpoints and the metrics
+writer, and in-loop sample dumps are off at a world size above 1. The JAX
+CLI's refusals stay: --test, --device_data and --fsdp > 1 with --multihost
+exit with its messages. A world size that sp * fsdp does not divide raises,
+--sp 2 on one process among them. Not yet across ranks: --device_data and
+--steps_per_dispatch > 1 at a world size above 1 raise NotImplementedError.
 
 The single-card levers, as the JAX CLI has them (train/gan.py:101-105,
 160-169, 253-340): --sgd trains both sides with optax.sgd's momentum SGD
@@ -50,38 +64,63 @@ seed, and stays frozen; its variables are in the checkpoint (`m_vars`).
 """
 
 import argparse
+import json
+import random
 import sys
 from collections import deque
 
 import numpy as np
 import torch
 
+from txt2vid_tpu_torch import resolve_device
 from txt2vid_tpu_torch.config import create_object
 from txt2vid_tpu_torch.convert import jax_state_to_torch, load_encoder_vars, torch_state_to_jax
-from txt2vid_tpu_torch.data import get_loader, load_pickle
+from txt2vid_tpu_torch.data import ShardedView, get_loader, load_pickle
 from txt2vid_tpu_torch.gan import trainer
 from txt2vid_tpu_torch.gan.cond_gan import CondGan
 from txt2vid_tpu_torch.gan.losses import MixedGanLoss
 from txt2vid_tpu_torch.gan.train_step import (ChunkStep, TrainConfig, adam, build_train_step,
                                               optimizer_params, sgd)
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
-from txt2vid_tpu_torch.train.setup import setup
+from txt2vid_tpu_torch.train.setup import add_multihost_args, maybe_init_distributed, setup
 from txt2vid_tpu_torch.utils import count_params, status, warn
 from txt2vid_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_state,
                                                 restore_txt_vars)
 
-# (flag, test of the parsed value): levers of the JAX CLI the port does not have
-# yet, all of them across devices
-UNPORTED = (
-    ("--sp", lambda a: a.sp > 1), ("--fsdp", lambda a: a.fsdp > 1),
-    ("--multihost", lambda a: a.multihost),
-)
+def check_multihost_flags(args):
+    """The JAX CLI's refusals under --multihost, with its messages
+    (train/gan.py:56-68)."""
+    if not args.multihost:
+        return
+    if args.test:
+        raise SystemExit("--test sampling is single-process; run it "
+                         "without --multihost on one host")
+    if args.device_data:
+        raise SystemExit("--device_data + --multihost is not supported "
+                         "(the HBM-resident cache is per-process); use "
+                         "the host loader path")
+    if args.fsdp > 1:
+        raise SystemExit("--fsdp + --multihost checkpointing needs a "
+                         "distributed checkpoint format (state shards are "
+                         "not process-addressable); use dp/sp axes across "
+                         "hosts and fsdp only single-host for now")
+
+
+def check_world_flags(args, world: int):
+    """What the port does not run across ranks yet, and --test's refusal."""
+    if world <= 1:
+        return
+    if args.test:
+        raise SystemExit("--test sampling is single-process; run it in one process")
+    if args.device_data:
+        raise NotImplementedError("--device_data at a world size above 1 is not in the "
+                                  "port yet")
+    if max(args.steps_per_dispatch, 1) > 1:
+        raise NotImplementedError("--steps_per_dispatch > 1 at a world size above 1 is "
+                                  "not in the port yet")
 
 
 def check_flags(args):
-    for flag, used in UNPORTED:
-        if used(args):
-            raise NotImplementedError(f"{flag} comes in a later slice of the port")
     k = max(args.steps_per_dispatch, 1)
     if args.clip_grad_split and args.discrim_steps != 1:
         raise ValueError("--clip_grad_split requires discrim_steps == 1")
@@ -170,6 +209,42 @@ class LoaderAdapter:
 
 def main(args):
     check_flags(args)
+    check_multihost_flags(args)
+    if not maybe_init_distributed(args):
+        return _main(args, None)
+    import torch.distributed as dist
+    try:
+        return _main(args, dist.get_world_size())
+    finally:
+        dist.destroy_process_group()
+
+
+def _make_mesh(args, world):
+    """The parallel.Mesh of a process group (world) or of --sp / --fsdp
+    above 1 (which raises on one process); else None."""
+    if world is None and args.sp * args.fsdp == 1:
+        return None
+    if args.fsdp > 1 and args.clip_grad_split:
+        raise ValueError("--clip_grad_split with fsdp state shardings is not supported")
+    from txt2vid_tpu_torch.parallel import Mesh
+    mesh = Mesh(sp=args.sp, fsdp=args.fsdp)
+    status(f"mesh: {mesh}")
+    return mesh
+
+
+def _broadcast_seed(args):
+    """Every rank draws from rank 0's --seed (a random one when not given)."""
+    from txt2vid_tpu_torch.parallel.collectives import broadcast_
+    seed = random.randint(0, 2 ** 31 - 1) if args.seed is None else args.seed
+    args.seed = int(broadcast_(torch.tensor([seed], dtype=torch.int64,
+                                            device=resolve_device(args.device)))[0])
+
+
+def _main(args, world):
+    if world is not None:
+        check_world_flags(args, world)
+        _broadcast_seed(args)
+    mesh = _make_mesh(args, world)
     seed, device = setup(args)
 
     vocab = None
@@ -238,7 +313,16 @@ def main(args):
     dset = create_object(args.data, vocab=vocab, anno=args.anno,
                          frame_size=args.frame_sizes[-1], num_channels=args.num_channels,
                          random_frames=args.random_frames, normalize=not args.uint8_input)
-    loader = get_loader(dset=dset, batch_size=args.batch_size, val=args.test,
+    local_bs = args.batch_size
+    if mesh is not None:
+        if args.batch_size % mesh.dp:
+            raise SystemExit(f"--batch_size {args.batch_size} must divide by the {mesh.dp} "
+                             "data-parallel ranks")
+        local_bs = args.batch_size // mesh.dp
+        dset = ShardedView(dset, mesh.dp_index, mesh.dp)
+        status(f"multihost data: process {mesh.rank} feeds {len(dset)} items, "
+               f"{local_bs}/{args.batch_size} of each global batch")
+    loader = get_loader(dset=dset, batch_size=local_bs, val=args.test,
                         num_workers=args.workers, seed=seed)
     ddata = None
     if args.device_data and not args.test:
@@ -254,7 +338,7 @@ def main(args):
     if args.G_loss is None:
         args.G_loss = args.D_loss
     losses = MixedGanLoss(g_loss=create_object(args.G_loss), d_loss=create_object(args.D_loss))
-    step = build_train_step(gan, losses, opt_g, opt_d, config, seed=seed)
+    step = build_train_step(gan, losses, opt_g, opt_d, config, seed=seed, mesh=mesh)
 
     if args.resume and not args.weights:
         args.weights = latest_checkpoint(args.out)
@@ -275,6 +359,13 @@ def main(args):
         status(f"Loading pre-trained sentence model from {args.sent_weights}")
         with torch.no_grad():
             load_encoder_vars(txt_encoder, restore_txt_vars(args.sent_weights))
+
+    if mesh is not None and mesh.fsdp > 1 and not args.test:
+        # the state (and the EMA) at rest as this rank's shards, from here on
+        if args.g_ema and ema is None:
+            from txt2vid_tpu_torch.gan.ema import init_ema
+            ema = init_ema(gen)
+        mesh.shard_state(step, ema)
 
     n_params = sum(count_params(m) for m in [gen, *discrims, txt_encoder] if m is not None)
     status("GAN has %d parameters (~%.2f * 10^8)" % (n_params, n_params / 1e8))
@@ -313,6 +404,10 @@ def main(args):
         status(f"NAN_ABORT: {e} — exiting 42 (resume from the last checkpoint with a "
                "fresh --seed)")
         sys.exit(42)
+    if mesh is not None:
+        from txt2vid_tpu_torch.parallel.collectives import COUNTS
+        status("collectives: " + json.dumps({f"{b}/{op}": n for (b, op), n in
+                                             sorted(COUNTS.items())}))
 
 
 def build_parser():
@@ -320,11 +415,7 @@ def build_parser():
     trainer.add_params_to_parser(parser)
     parser.add_argument('--device', type=str, default=None,
                         help='torch device; default cuda (raises without a GPU)')
-    parser.add_argument('--multihost', action='store_true', default=False,
-                        help='not in the port yet (raises)')
-    parser.add_argument('--coordinator', type=str, default=None, help=argparse.SUPPRESS)
-    parser.add_argument('--num_processes', type=int, default=None, help=argparse.SUPPRESS)
-    parser.add_argument('--process_id', type=int, default=None, help=argparse.SUPPRESS)
+    add_multihost_args(parser)
     parser.add_argument('--test', action='store_true')
     parser.add_argument('--num_samples', type=int, default=1)
     parser.add_argument('--seed', type=int, default=None)
@@ -394,8 +485,12 @@ def build_parser():
     parser.add_argument('--shared_gen_fwd', action='store_true', default=False,
                         help='accepted: with gen_steps 1 outside end2end the port always '
                              'runs one generator forward per step, the same computation')
-    parser.add_argument('--sp', type=int, default=1, help='not in the port yet (>1 raises)')
-    parser.add_argument('--fsdp', type=int, default=1, help='not in the port yet (>1 raises)')
+    parser.add_argument('--sp', type=int, default=1,
+                        help='sequence-parallel ranks: the non-local attention\'s tokens '
+                             'ring-split over them; world = dp * sp * fsdp')
+    parser.add_argument('--fsdp', type=int, default=1,
+                        help='fsdp ranks: parameters, optimizer moments and BatchNorm '
+                             'statistics sharded at rest over them; world = dp * sp * fsdp')
     parser.add_argument('--uint8_input', action='store_true', default=True,
                         help='ship video batches as uint8, normalize on the device')
     parser.add_argument('--no_uint8_input', dest='uint8_input', action='store_false')
