@@ -279,3 +279,49 @@ def test_bf16_function_gradients():
     for ref, got in zip(plain, grads):
         assert got.dtype == torch.bfloat16
         _assert_close(ref, got, 1e-2)
+
+
+def test_remat_recomputes_in_the_forwards_context_on_the_card():
+    """A remat block's backward on CUDA tensors (which the autograd engine
+    runs on its device thread) recomputes under the forward's data-parallel
+    group and sequence-parallel ring, left before the backward: what the
+    recomputation reads and the gradients equal the block without remat."""
+    import threading
+
+    from txt2vid_tpu_torch.models import layers
+    from txt2vid_tpu_torch.ops import attention, batch_group
+
+    class TwoRanks:     # BatchNorm's hook: a second rank's items 2x + 1 of these
+        def batch_stats(self, x32, dims):
+            var, mean = torch.var_mean(torch.cat([x32, 2 * x32.detach() + 1]), dim=dims,
+                                       correction=0)
+            return mean, var
+
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(layers.Conv2d(3, 4, 3, padding=1), layers.BatchNorm2d(4),
+                              torch.nn.ReLU()).cuda()
+    group, ring, seen = TwoRanks(), object(), []
+
+    def block(x):
+        seen.append((batch_group.group(), attention._SEQUENCE_PARALLEL.get(),
+                     threading.get_ident()))
+        return net(x)
+
+    def grads(use_remat):
+        net.zero_grad()
+        seen.clear()
+        x = torch.randn((2, 3, 5, 5), device="cuda", requires_grad=True)
+        with batch_group.batch_group(group), attention.sequence_parallel(ring):
+            y = layers.remat(block, x) if use_remat else block(x)
+        (y * torch.ones_like(y).cumsum(-1)).sum().backward()
+        return [x.grad.clone()] + [p.grad.clone() for p in net.parameters()]
+
+    torch.manual_seed(1)
+    plain = grads(False)
+    torch.manual_seed(1)
+    got = grads(True)
+    assert [s[:2] for s in seen] == [(group, ring)] * 2
+    print("remat: the recomputation ran on "
+          f"{'another thread than' if seen[1][2] != seen[0][2] else 'the thread of'} the forward")
+    for a, b in zip(plain, got):
+        assert torch.equal(a, b)

@@ -17,7 +17,7 @@ gen_perm_device and _interpolate) are the global draws every rank is given.
 
 - dp=2 at batch 6 (3 per rank: the first subsample splits the global
   x[::2] 2 / 1) and batch 4 (2 per rank: rank 1 holds zero items at the
-  last scale), then RaSGAN and --end2end at batch 6, each against JAX's
+  last scale), then RaSGAN, --end2end and attn_b6 at batch 6, each against JAX's
   step: losses 1e-4 relative (measured up to 2.5e-6), grad norms 1e-3
   relative (measured up to 1.4e-4, G's), D's Adam first moments 1e-3 of the
   leaf scale (measured up to 2.6e-4; the port's one-process step sits up
@@ -32,7 +32,13 @@ gen_perm_device and _interpolate) are the global draws every rank is given.
   norm. Both ranks end bit for bit equal.
 - fsdp=2 against the port's replicated step, bit for bit; each rank holds
   half of every leaf fsdp_spec splits.
-- dp=2 x sp=2 (4 ranks) against the port's one-process step, as dp; all
+- dp=2 x sp=2 (4 ranks: ring attention in G and D), remat off and on in
+  both (each recomputation runs BatchNorm over the dp group and attention
+  over the ring), against the port's one-process step from the port's init
+  with every gamma 0.5, as dp, and against JAX's single-device step of the
+  case attn_b6 (batch 6, RSGAN, every gamma 0.5, so the attention's
+  gradients reach the losses) at the dp tolerances (measured: losses
+  1.9e-6, norms 6.4e-6, D's first moments 1.3e-4 of the leaf scale); all
   four ranks end bit for bit equal.
 - ring attention at sp=2 and sp=4 against JAX's ring_attention on the
   conftest's virtual CPU devices and against the plain attention: outputs
@@ -74,7 +80,11 @@ CASES = {
     "rsgan_b4": dict(batch=4, loss="RSGANLoss"),
     "rasgan_b6": dict(batch=6, loss="RaSGANLoss"),
     "end2end_b6": dict(batch=6, loss="RSGANLoss", end2end=True),
+    # every attention's gamma 0.5, so the attention's gradients reach the
+    # loss: the case dp=2 x sp=2 (ring attention in G and D) is held to
+    "attn_b6": dict(batch=6, loss="RSGANLoss", gamma=0.5),
 }
+SP_CASE = "attn_b6"
 
 
 def needs_jax_package():
@@ -143,9 +153,10 @@ def port_config(end2end=False, **extra):
                 shared_gen_fwd=True, gp_lambda=GP, clip_grad=CLIP, end2end=end2end, **extra)
 
 
-def step_job(state, batch, draws, loss="RSGANLoss", mesh=None, end2end=False):
-    return dict(kind="step", gen=GEN, disc=DISC, enc=ENC, config=port_config(end2end),
-                loss=loss, state=str(state), batch=batch, draws=draws, mesh=mesh or {})
+def step_job(state, batch, draws, loss="RSGANLoss", mesh=None, end2end=False, remat=False):
+    return dict(kind="step", gen=dict(GEN, remat=remat), disc=dict(DISC, remat=remat), enc=ENC,
+                config=port_config(end2end), loss=loss, state=str(state), batch=batch,
+                draws=draws, mesh=mesh or {})
 
 
 def one_process_step(job):
@@ -259,17 +270,19 @@ def ring_inputs(seed, b=2, n=16, m=8, d=4, dv=16):
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
     """The port against itself, no JAX: fsdp=2 and ring sp=2 on 2 ranks,
-    dp=2 x sp=2 and ring sp=4 on 4 ranks, and the one-process step."""
+    dp=2 x sp=2 (remat off and on in G and D) and ring sp=4 on 4 ranks, and
+    the one-process step."""
     tmp = tmp_path_factory.mktemp("port")
     draws = port_state(tmp / "state")
     job = step_job(tmp / "state", make_batch(6, seed=1), draws)
     rings = {2: ring_inputs(2), 4: ring_inputs(4)}
     two = run_ranks([dict(job, mesh={"fsdp": 2}), dict(kind="ring", sp=2, **rings[2])], 2,
                     tmp_path_factory.mktemp("two"))
-    four = run_ranks([dict(job, mesh={"sp": 2}), dict(kind="ring", sp=4, **rings[4])], 4,
-                     tmp_path_factory.mktemp("four"))
+    remat = step_job(tmp / "state", make_batch(6, seed=1), draws, remat=True)
+    four = run_ranks([dict(job, mesh={"sp": 2}), dict(kind="ring", sp=4, **rings[4]),
+                      dict(remat, mesh={"sp": 2})], 4, tmp_path_factory.mktemp("four"))
     return dict(job=job, one=one_process_step(job), fsdp=[r[0] for r in two],
-                dp_sp=[r[0] for r in four], rings=rings,
+                dp_sp=[r[0] for r in four], dp_sp_remat=[r[2] for r in four], rings=rings,
                 ring={2: [r[1] for r in two], 4: [r[1] for r in four]})
 
 
@@ -302,23 +315,38 @@ def test_fsdp2_ranks_hold_half_of_each_sharded_leaf(port_runs):
     assert sharded > 0
 
 
-def test_dp2_sp2_step_matches_the_one_process_step(port_runs):
-    one_metrics, one_state = port_runs["one"]
-    ranks = port_runs["dp_sp"]
+def check_dp2_sp2(ref, ranks, what, tol, norm_tol, g_tol=None):
+    """The 4 ranks of a dp=2 x sp=2 step against a one-device step `ref`
+    (metrics, state): the mesh, the ring's rotations, the metrics, D's (and
+    with g_tol G's) first moments, and every rank's state the same."""
+    ref_metrics, ref_state = ref
     assert [r["coords"] for r in ranks] == [(0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]
     assert [r["local_batch"] for r in ranks] == [3] * 4
     # the ring ran: its key/value rotations are the only send/recv
     assert all(r["collectives"].get("gloo/send_recv", 0) > 0 for r in ranks)
     for r in ranks:
-        check_metrics(one_metrics, r["metrics"], 1e-5, "dp2 x sp2", norm_tol=1e-4)
-    check_moments(first_moments(one_state, "d"), first_moments(ranks[0]["state"], "d"), 1e-3,
-                  "dp2 x sp2 D")
-    check_moments(first_moments(one_state, "g"), first_moments(ranks[0]["state"], "g"), 3e-3,
-                  "dp2 x sp2 G")
+        check_metrics(ref_metrics, r["metrics"], tol, what, norm_tol=norm_tol)
+    check_moments(first_moments(ref_state, "d"), first_moments(ranks[0]["state"], "d"), 1e-3,
+                  f"{what} D")
+    if g_tol is not None:
+        check_moments(first_moments(ref_state, "g"), first_moments(ranks[0]["state"], "g"),
+                      g_tol, f"{what} G")
     a = flat(ranks[0]["state"])
     for r in ranks[1:]:
         b = flat(r["state"])
         assert all(np.array_equal(a[k], b[k]) for k in a), "the ranks' states differ"
+
+
+def test_dp2_sp2_step_matches_the_one_process_step(port_runs):
+    check_dp2_sp2(port_runs["one"], port_runs["dp_sp"], "dp2 x sp2", 1e-5, 1e-4, g_tol=3e-3)
+
+
+def test_dp2_sp2_remat_step_matches_the_one_process_step(port_runs):
+    """The same step with remat in G and D: each block's recomputation in
+    the backward runs BatchNorm over the dp group and attention over the
+    ring, as its forward did."""
+    check_dp2_sp2(port_runs["one"], port_runs["dp_sp_remat"], "dp2 x sp2 remat", 1e-5, 1e-4,
+                  g_tol=3e-3)
 
 
 def plain_attention(x):
@@ -419,6 +447,13 @@ def jax_lower(case, base, state_path):
     spec = CASES[case]
     b, end2end = spec["batch"], spec.get("end2end", False)
     batch, opt, state = make_batch(b), base["opt"], base["state"]
+    if "gamma" in spec:
+        def gammas(tree):
+            return jax.tree_util.tree_map_with_path(
+                lambda path, v: jnp.full_like(v, spec["gamma"])
+                if getattr(path[-1], "key", None) == "gamma" else v, tree)
+        state = state.replace(g_vars=gammas(state.g_vars),
+                              d_vars=tuple(gammas(v) for v in state.d_vars))
     g_tree, d_tree = {"g": state.g_vars["params"]}, {"d": (state.d_vars[0]["params"],)}
     if end2end:
         g_tree["txt"] = d_tree["txt"] = state.txt_vars["params"]
@@ -476,7 +511,8 @@ def jax_lower(case, base, state_path):
 @pytest.fixture(scope="module")
 def dp_runs(jax_base, tmp_path_factory):
     """Each case: JAX's step, the port's one-process step and its dp=2 step
-    on both ranks."""
+    on both ranks; SP_CASE also at dp=2 x sp=2 on 4 ranks, remat off and
+    on."""
     from concurrent.futures import ThreadPoolExecutor
     tmp = tmp_path_factory.mktemp("dp")
     # traced one by one (the recording wrappers are module attributes),
@@ -492,6 +528,12 @@ def dp_runs(jax_base, tmp_path_factory):
         jobs.append(job)
     for name, ranks in zip(CASES, zip(*run_ranks(jobs, 2, tmp))):
         cases[name]["dp"] = list(ranks)
+    sp_job = jobs[list(CASES).index(SP_CASE)]
+    four = run_ranks([dict(sp_job, mesh={"sp": 2}), dict(sp_job, mesh={"sp": 2},
+                                                         gen=dict(GEN, remat=True),
+                                                         disc=dict(DISC, remat=True))],
+                     4, tmp_path_factory.mktemp("dp_sp"))
+    cases[SP_CASE]["dp_sp"] = {False: [r[0] for r in four], True: [r[1] for r in four]}
     return cases
 
 
@@ -503,6 +545,15 @@ def test_dp2_step_matches_jax_single_device(dp_runs, name):
         check_metrics(jax_metrics, r["metrics"], 1e-4, f"{name} dp2 vs JAX", norm_tol=1e-3)
     check_moments(first_moments(jax_new, "d"), first_moments(dp[0]["state"], "d"), 1e-3,
                   f"{name} D dp2 vs JAX")
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_dp2_sp2_step_matches_jax_single_device(dp_runs, remat):
+    """dp=2 x sp=2 (ring attention in G and D, gammas 0.5, the GP's double
+    backward on the plain attention), remat off and on in G and D, against
+    JAX's single-device step: the dp tolerances."""
+    check_dp2_sp2(dp_runs[SP_CASE]["jax"], dp_runs[SP_CASE]["dp_sp"][remat],
+                  f"{SP_CASE} dp2 x sp2 {'remat ' if remat else ''}vs JAX", 1e-4, 1e-3)
 
 
 @pytest.mark.parametrize("name", list(CASES))

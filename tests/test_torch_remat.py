@@ -19,6 +19,9 @@
   through the wrappers' calls, with remat on and off.
 """
 
+import contextlib
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +39,7 @@ from txt2vid_tpu_torch.gan.train_step import TrainConfig, adam, build_train_step
 from txt2vid_tpu_torch.models import layers, tganv2
 from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops import attention as port_attention
+from txt2vid_tpu_torch.ops import batch_group
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
 
 
@@ -108,8 +112,8 @@ def test_remat_step_equals_the_plain_step(plain_run, remat_g, remat_d):
 def test_statistics_updated_twice_would_fail(plain_run, monkeypatch):
     """The guard is what keeps the statistics right: without it the
     recomputation updates the running statistics a second time."""
-    def updating(kernels_off):
-        return port_attention.kernel_disabled(kernels_off)
+    def updating(forward_context):
+        return contextlib.nullcontext()
 
     monkeypatch.setattr(layers, "_recompute_context", updating)
     with pytest.raises(AssertionError, match="running_"):
@@ -163,6 +167,64 @@ def test_recompute_takes_the_forwards_attention_path(monkeypatch):
     u, _, _ = disc([x])[0]
     u.sum().backward()
     assert len(calls) == 2          # the forward and its recomputation
+
+
+class _TwoRanks:
+    """A data-parallel group as BatchNorm sees it (parallel.mesh.GlobalBatch's
+    batch_stats hook), in one process: the statistics over this rank's items
+    and a second rank's, here 2x + 1 of this rank's."""
+
+    def batch_stats(self, x32, dims):
+        var, mean = torch.var_mean(torch.cat([x32, 2 * x32.detach() + 1]), dim=dims,
+                                   correction=0)
+        return mean, var
+
+
+def test_recompute_runs_in_the_forwards_context_on_another_thread():
+    """On CUDA the autograd engine runs a backward on its device thread, where
+    the forward's context variables are unset. A remat block run under a
+    data-parallel group and a sequence-parallel ring, its backward started
+    from a fresh thread after both are left, recomputes under both: the
+    recomputation reads the forward's group and ring, and the gradients are
+    those of the block without remat."""
+    net = init_from_seed(torch.nn.Sequential(layers.Conv2d(3, 4, 3, padding=1),
+                                             layers.BatchNorm2d(4), torch.nn.ReLU()), 4)
+    group, ring = _TwoRanks(), object()
+    seen = []
+
+    def block(x):
+        seen.append((batch_group.group(), port_attention._SEQUENCE_PARALLEL.get()))
+        return net(x)
+
+    def grads(use_remat):
+        net.zero_grad()
+        seen.clear()
+        x = torch.randn((2, 3, 5, 5), generator=torch.Generator().manual_seed(0),
+                        requires_grad=True)
+        w = torch.randn((2, 4, 5, 5), generator=torch.Generator().manual_seed(1))
+        with batch_group.batch_group(group), port_attention.sequence_parallel(ring):
+            y = layers.remat(block, x) if use_remat else block(x)
+        errors = []
+
+        def backward():
+            try:
+                (y * w).sum().backward()
+            except Exception as e:      # noqa: BLE001 - re-raised on this thread
+                errors.append(e)
+
+        thread = threading.Thread(target=backward)
+        thread.start()
+        thread.join()
+        if errors:
+            raise errors[0]
+        return [x.grad.clone()] + [p.grad.clone() for p in net.parameters()]
+
+    plain = grads(False)
+    assert seen == [(group, ring)]
+    got = grads(True)
+    assert seen == [(group, ring)] * 2          # the forward and its recomputation
+    for a, b in zip(plain, got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("remat_g,remat_d", [(False, False), (True, True), (True, False)],

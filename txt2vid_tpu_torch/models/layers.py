@@ -29,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from txt2vid_tpu_torch.ops import batch_group
-from txt2vid_tpu_torch.ops.attention import attention_core_auto, kernel_disabled, kernels_disabled
+from txt2vid_tpu_torch.ops.attention import attention_core_auto
 from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, kernel_init_
 from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
                                            max_pool_3d, upsample_nearest_2d)
@@ -44,21 +44,25 @@ _STATS_FROZEN = contextvars.ContextVar("txt2vid_batch_stats_frozen", default=Fal
 
 class _recompute_context:
     """Entered for each recomputation of one remat block (a block under the
-    gradient penalty's double backward is recomputed once per backward)."""
+    gradient penalty's double backward is recomputed once per backward): every
+    context variable takes the value it had at the block's forward, and
+    BatchNorm's statistics are frozen. The backward may run on another thread
+    than the forward (on CUDA the autograd engine's device thread), whose
+    context holds none of the forward's: the attention path (no_kernel()),
+    the data-parallel group of BatchNorm's statistics (ops/batch_group.py) and
+    the sequence-parallel ring (ops.attention.sequence_parallel)."""
 
-    def __init__(self, kernels_off: bool):
-        self.kernels_off = kernels_off
+    def __init__(self, forward_context: contextvars.Context):
+        self.forward_context = forward_context
         self._entered = []
 
     def __enter__(self):
-        kernels = kernel_disabled(self.kernels_off)
-        kernels.__enter__()
-        self._entered.append((_STATS_FROZEN.set(True), kernels))
+        tokens = [var.set(value) for var, value in self.forward_context.items()]
+        self._entered.append(tokens + [_STATS_FROZEN.set(True)])
 
     def __exit__(self, *exc):
-        token, kernels = self._entered.pop()
-        _STATS_FROZEN.reset(token)
-        return kernels.__exit__(*exc)
+        for token in reversed(self._entered.pop()):
+            token.var.reset(token)
 
 
 def remat(fn, *args):
@@ -66,15 +70,17 @@ def remat(fn, *args):
     (flax's nn.remat, the `remat` field of MultiScaleGen and MultiScaleDiscrim):
     non-reentrant torch.utils.checkpoint, so the double backward of the
     gradient penalty goes through it. The recomputation sees what the forward
-    saw and changes nothing the forward did: it takes the attention path the
-    forward took (no_kernel() or not, captured at the forward), and BatchNorm
+    saw and changes nothing the forward did: it runs in the forward's context
+    (captured at the forward, whatever thread the backward runs on), so it
+    takes the attention path the forward took, no_kernel() or not, the ring
+    or not, and BatchNorm's statistics over the same group; and BatchNorm
     leaves its running statistics alone, which the forward updated once, as
     flax's remat does. The wrapped blocks draw no random numbers; the RNG
     state is restored for the recomputation all the same."""
-    kernels_off = kernels_disabled()
+    forward_context = contextvars.copy_context()
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          _recompute_context(kernels_off)))
+                                          _recompute_context(forward_context)))
 
 
 @contextlib.contextmanager

@@ -25,9 +25,12 @@ the (N, M) map is never formed. The backward is first-order only: the
 gradient penalty's double backward takes the plain attention under
 no_kernel() before the ring is reached.
 
-`ring_attention_local` runs the same blocks and merges with the ring's
-rotations as a loop over the blocks in one process (the chip check and the
-tests hold the merge against one K1 over all of M with it).
+The forward and the backward are written once (`ring_forward`,
+`ring_backward`) over the ranks a ring holds and its rotation: an `SpGroup`
+holds this rank and rotates by send/recv; a `LocalRing` holds all of them
+in one process and rotates a list (`ring_attention_local`,
+`ring_backward_local`: the chip check and the tests hold the ring to one K1
+over all of M with them).
 """
 
 from dataclasses import dataclass
@@ -41,7 +44,8 @@ from txt2vid_tpu_torch.ops.fused_attention import fused_attention, fused_attenti
 @dataclass(frozen=True)
 class SpGroup:
     """A sequence-parallel group: its process group, size, this rank's index
-    in it and the global ranks of the ring, in order."""
+    in it and the global ranks of the ring, in order. As a ring (see
+    `ring_forward`) it holds this rank alone."""
 
     group: object
     size: int
@@ -55,6 +59,31 @@ class SpGroup:
     @property
     def prev(self) -> int:
         return self.ranks[(self.index - 1) % self.size]
+
+    @property
+    def held(self):
+        return (self.index,)
+
+    def rotate(self, per_rank):
+        """One ring step: this rank's tensors go to the next rank, the
+        previous rank's come in (send/recv over the group)."""
+        from txt2vid_tpu_torch.parallel.collectives import rotate
+        return [rotate(per_rank[0], self.group, self.next, self.prev)]
+
+
+@dataclass(frozen=True)
+class LocalRing:
+    """The ring of `size` ranks in one process: it holds every rank, in ring
+    order, and a rotation hands each rank's tensors to the next."""
+
+    size: int
+
+    @property
+    def held(self):
+        return tuple(range(self.size))
+
+    def rotate(self, per_rank):
+        return per_rank[-1:] + per_rank[:-1]
 
 
 def block_attention(theta, phi, g, use_kernel: bool = True):
@@ -70,19 +99,6 @@ def merge(o_a, lse_a, o_b, lse_b):
             + o_b * torch.exp(lse_b - lse)[..., None]), lse
 
 
-def ring_forward(theta, blocks, use_kernel: bool = True):
-    """Merge the blocks (phi_c, g_c) the queries theta meet, in order, from
-    o = 0 and lse = -inf: (o float32, lse)."""
-    b, n, _ = theta.shape
-    o = lse = None
-    for phi_c, g_c in blocks:
-        if o is None:
-            o = torch.zeros((b, n, g_c.shape[-1]), dtype=torch.float32, device=theta.device)
-            lse = torch.full((b, n), float("-inf"), dtype=torch.float32, device=theta.device)
-        o, lse = merge(o, lse, *block_attention(theta, phi_c, g_c, use_kernel))
-    return o, lse
-
-
 def block_backward(theta, phi_c, g_c, do, lse, delta):
     """One tile's plain recompute in float32: (dtheta, dphi_c, dg_c) with
     p = exp(theta phi_c^T - lse) and ds = p * (do g_c^T - delta)."""
@@ -94,57 +110,71 @@ def block_backward(theta, phi_c, g_c, do, lse, delta):
             torch.einsum("bnm,bnv->bmv", p, do.float()))
 
 
-def _split(x, size: int, index: int):
-    n = x.shape[1] // size
-    return x[:, index * n:(index + 1) * n].contiguous()
+def blocks(x, ring):
+    """The held ranks' blocks of a replicated (B, N, ...) tensor (dim 1)."""
+    n = x.shape[1] // ring.size
+    return [x[:, k * n:(k + 1) * n].contiguous() for k in ring.held]
+
+
+def ring_forward(ths, kvs, ring, use_kernel: bool = True):
+    """The ring's forward for the ranks `ring` holds: rank k's queries
+    ths[k] meet its own key/value block kvs[k] = (phi_k, g_k), then each
+    received from the previous rank, merged from o = 0 and lse = -inf.
+    Returns the per-rank (o float32, lse) lists."""
+    os_, lses = [], []
+    for th, (_, g_k) in zip(ths, kvs):
+        b, n, _ = th.shape
+        os_.append(torch.zeros((b, n, g_k.shape[-1]), dtype=torch.float32, device=th.device))
+        lses.append(torch.full((b, n), float("-inf"), dtype=torch.float32, device=th.device))
+    for i in range(ring.size):
+        for k, (th, (ph, gg)) in enumerate(zip(ths, kvs)):
+            os_[k], lses[k] = merge(os_[k], lses[k], *block_attention(th, ph, gg, use_kernel))
+        if i < ring.size - 1:
+            kvs = ring.rotate(kvs)
+    return os_, lses
+
+
+def ring_backward(ths, kvs, o32s, lses, d_os, ring):
+    """The blockwise recompute for the ranks `ring` holds, from the forward's
+    per-rank o and lse: per-rank float32 (dtheta, dphi, dg) lists. The dphi
+    and dg accumulators travel with their key/value block; the last rotation
+    brings them home alone."""
+    dths, carry = [], []
+    for th, (ph, gg) in zip(ths, kvs):
+        dths.append(torch.zeros(th.shape, dtype=torch.float32, device=th.device))
+        carry.append([ph, gg, torch.zeros(ph.shape, dtype=torch.float32, device=ph.device),
+                      torch.zeros(gg.shape, dtype=torch.float32, device=gg.device)])
+    deltas = [(d_o.float() * o32).sum(dim=-1) for d_o, o32 in zip(d_os, o32s)]
+    for i in range(ring.size):
+        for k, c in enumerate(carry):
+            a, b, d = block_backward(ths[k], c[0], c[1], d_os[k], lses[k], deltas[k])
+            dths[k] += a
+            c[2], c[3] = c[2] + b, c[3] + d
+        if i < ring.size - 1:
+            carry = ring.rotate(carry)
+        else:
+            carry = ring.rotate([c[2:] for c in carry])
+    return dths, [c[0] for c in carry], [c[1] for c in carry]
 
 
 def ring_attention_local(theta, phi, g, size: int, use_kernel: bool = True):
-    """The ring of `size` ranks as a loop in one process: query block s meets
-    key/value blocks s, s - 1, ... (mod size), as rank s of the ring does.
-    Returns (o in g's dtype, o float32, lse), (B, N, ...)."""
-    kv = [(_split(phi, size, k), _split(g, size, k)) for k in range(size)]
-    outs = [ring_forward(_split(theta, size, s),
-                         (kv[(s - i) % size] for i in range(size)), use_kernel)
-            for s in range(size)]
-    o32 = torch.cat([o for o, _ in outs], dim=1)
-    return o32.to(g.dtype), o32, torch.cat([lse for _, lse in outs], dim=1)
+    """The ring of `size` ranks as a `LocalRing` in one process, through the
+    body RingAttention runs. Returns (o in g's dtype, o float32, lse),
+    (B, N, ...)."""
+    ring = LocalRing(size)
+    o32s, lses = ring_forward(blocks(theta, ring), list(zip(blocks(phi, ring), blocks(g, ring))),
+                              ring, use_kernel)
+    o32 = torch.cat(o32s, dim=1)
+    return o32.to(g.dtype), o32, torch.cat(lses, dim=1)
 
 
 def ring_backward_local(theta, phi, g, o32, lse, do, size: int):
-    """The ring's blockwise recompute as a loop in one process:
+    """RingAttention's backward as a `LocalRing` in one process:
     (dtheta, dphi, dg) in the inputs' dtypes."""
-    delta = (do.float() * o32).sum(dim=-1)
-    m = phi.shape[1] // size
-    dph = [torch.zeros((phi.shape[0], m, phi.shape[2]), device=phi.device)
-           for _ in range(size)]
-    dgs = [torch.zeros((g.shape[0], m, g.shape[2]), device=g.device) for _ in range(size)]
-    dth = []
-    for s in range(size):
-        th, d_o = _split(theta, size, s), _split(do, size, s)
-        n = th.shape[1]
-        ls, dl = lse[:, s * n:(s + 1) * n], delta[:, s * n:(s + 1) * n]
-        acc = torch.zeros(th.shape, device=th.device)
-        for i in range(size):
-            k = (s - i) % size
-            a, b, c = block_backward(th, _split(phi, size, k), _split(g, size, k), d_o, ls, dl)
-            acc += a
-            dph[k] += b
-            dgs[k] += c
-        dth.append(acc)
-    return (torch.cat(dth, dim=1).to(theta.dtype), torch.cat(dph, dim=1).to(phi.dtype),
-            torch.cat(dgs, dim=1).to(g.dtype))
-
-
-def _rotating(first, sp: SpGroup):
-    """Yield the blocks this rank meets: its own, then each received from
-    the previous rank (size - 1 rotations)."""
-    from txt2vid_tpu_torch.parallel.collectives import rotate
-    blocks = first
-    for i in range(sp.size):
-        yield blocks
-        if i < sp.size - 1:
-            blocks = rotate(blocks, sp.group, sp.next, sp.prev)
+    ring = LocalRing(size)
+    grads = ring_backward(blocks(theta, ring), list(zip(blocks(phi, ring), blocks(g, ring))),
+                          blocks(o32, ring), blocks(lse, ring), blocks(do, ring), ring)
+    return tuple(torch.cat(d, dim=1).to(x.dtype) for d, x in zip(grads, (theta, phi, g)))
 
 
 class RingAttention(torch.autograd.Function):
@@ -154,9 +184,8 @@ class RingAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, phi, g, sp: SpGroup, use_kernel: bool):
         from txt2vid_tpu_torch.parallel.collectives import all_gather_cat
-        th = _split(theta, sp.size, sp.index)
-        ph, gg = _split(phi, sp.size, sp.index), _split(g, sp.size, sp.index)
-        o32, lse = ring_forward(th, _rotating((ph, gg), sp), use_kernel)
+        (th,), (ph,), (gg,) = blocks(theta, sp), blocks(phi, sp), blocks(g, sp)
+        (o32,), (lse,) = ring_forward([th], [(ph, gg)], sp, use_kernel)
         ctx.save_for_backward(th, ph, gg, o32, lse)
         ctx.sp = sp
         return all_gather_cat(o32.to(g.dtype), sp.group, dim=1)
@@ -164,28 +193,12 @@ class RingAttention(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        from txt2vid_tpu_torch.parallel.collectives import all_gather_cat, rotate
+        from txt2vid_tpu_torch.parallel.collectives import all_gather_cat
         th, ph, gg, o32, lse = ctx.saved_tensors
         sp = ctx.sp
-        d_o = _split(do, sp.size, sp.index)
-        delta = (d_o.float() * o32).sum(dim=-1)
-        dth = torch.zeros(th.shape, dtype=torch.float32, device=th.device)
-        carry = [ph, gg, torch.zeros(ph.shape, dtype=torch.float32, device=ph.device),
-                 torch.zeros(gg.shape, dtype=torch.float32, device=gg.device)]
-        for i in range(sp.size):
-            a, b, c = block_backward(th, carry[0], carry[1], d_o, lse, delta)
-            dth += a
-            carry[2] = carry[2] + b
-            carry[3] = carry[3] + c
-            # the accumulators travel with their block; the last rotation
-            # brings them home alone
-            if i < sp.size - 1:
-                carry = rotate(carry, sp.group, sp.next, sp.prev)
-            else:
-                carry[2:] = rotate(carry[2:], sp.group, sp.next, sp.prev)
-        return (all_gather_cat(dth.to(th.dtype), sp.group, dim=1),
-                all_gather_cat(carry[2].to(ph.dtype), sp.group, dim=1),
-                all_gather_cat(carry[3].to(gg.dtype), sp.group, dim=1), None, None)
+        grads = ring_backward([th], [(ph, gg)], [o32], [lse], blocks(do, sp), sp)
+        return (*(all_gather_cat(d.to(x.dtype), sp.group, dim=1)
+                  for (d,), x in zip(grads, (th, ph, gg))), None, None)
 
 
 def ring_attention(theta, phi, g, sp: SpGroup, use_kernel: bool = True):
