@@ -204,7 +204,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    NCCL group of one, in-process: finite, 17 / 13 / 13 launches a step,
    each step's ms and the peak memory, the attention shapes it gives, and
    (a)'s check at them. Its launches are the kernels line's
-   "parallel_launches".
+   "parallel_launches". (d) (b)'s command line with --device_data on (b)'s
+   clips packed, 2 steps, and (e) with --steps_per_dispatch 2 for 4 steps in
+   2 chunks, each in-process without a group and under an NCCL group of
+   world size 1 (torchrun's environment), cuDNN deterministic: the same
+   metrics and checkpoint (and .ema) bytes with and without the group, 17 /
+   13 / 13 launches a step, the NCCL collectives; (d) the cache's bytes on the card, (e) each
+   chunk's collectives 2x one step's of (d). Their float32 launches under
+   the group are "parallel_device_data_launches" and
+   "parallel_dispatch_launches" (K1 2 more in (e): the sample grids at
+   iteration 4). One card is a world of one (NCCL refuses two ranks on one
+   GPU), so the dp cut of (d) and (e) runs on the CPU with gloo
+   (tests/test_torch_parallel_levers.py).
 
 Each phase prints its seconds. The kernels line holds each kernel twice: its
 float32 instantiations (K1 at the serving shape, K2 and K3 at the training
@@ -234,6 +245,7 @@ import hashlib
 import importlib.util
 import json
 import math
+import os
 import pickle
 import re
 import shutil
@@ -1166,6 +1178,8 @@ class StepRecorder:
             state = StateSnapshot(step) if rec.snapshot and rec.bad is None else None
             torch.cuda.synchronize()
             before = counts()
+            coll = sys.modules.get("txt2vid_tpu_torch.parallel.collectives")
+            before_coll = dict(coll.COUNTS) if coll else {}
             t0 = time.perf_counter()
             out = rec._orig(step, batch, draws)
             metrics = {k: float(v) for k, v in out.items()}
@@ -1173,8 +1187,11 @@ class StepRecorder:
                 rec.bad = (it, state, batch)
             ms = 1e3 * (time.perf_counter() - t0)
             launched = {k: v - before[k] for k, v in counts().items()}
-            rec.steps.append({"iteration": it, "gp": gp, "ms": ms,
-                              "metrics": metrics, "launches": launched})
+            collectives = {f"{b}/{op}": n - before_coll.get((b, op), 0)
+                           for (b, op), n in (coll.COUNTS.items() if coll else ())
+                           if n != before_coll.get((b, op), 0)}
+            rec.steps.append({"iteration": it, "gp": gp, "ms": ms, "metrics": metrics,
+                              "launches": launched, "collectives": collectives})
             rec.step, rec.batch = step, batch
             return out
 
@@ -2264,44 +2281,72 @@ def moved_and_frozen(step, start, name):
           f"{frozen} tensors of M and of the discriminators' statistics unchanged")
 
 
-def family_float64_step(step, batch, name):
-    """One float32 step on the card against the same step in float64, from
-    one copied state and one set of draws: losses within 1e-4 relative, each
-    Adam first moment leaf within 1e-3 of its leaf scale (max|moment|
-    floored at 1e-2 of its module's largest), or, where the worst leaf is
-    further, no further than the same float32 step on the host's CPU (the
-    limit the same comparison measures there; BatchNorm at batch statistics
-    after each convolution cancels, so float32 strays at full width)."""
-    gan = step.gan
-    start = StateSnapshot(step)
-    x = batch["video"]
-    draws = step.draw(x.shape[0], x.device)
-    sides = {"G": (gan.gen, step.opt_g),
-             **{f"D{k}": (d, step.opt_d) for k, d in enumerate(gan.discrims)}}
-    mods = [m for m in (gan.gen, *gan.discrims, gan.cond_encoder, gan.sample_mapping)
-            if m is not None]
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms, without autotuning, inside the
+    block; both settings as they were after it."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
-    def run(dtype, device="cuda"):
-        for m in mods:
+
+class Float64Step:
+    """One step of `step` from one copied state and one set of draws, run in
+    any dtype on the card or on the host's CPU: its metrics and each side's
+    Adam first moments, and their distance from another run's (each leaf's
+    max|diff| over its leaf scale, max|moment| floored at 1e-2 of its
+    side's largest)."""
+
+    def __init__(self, step, batch):
+        gan = step.gan
+        self.step, self.batch, self.start = step, batch, StateSnapshot(step)
+        x = batch["video"]
+        self.draws = step.draw(x.shape[0], x.device)
+        self.sides = {"G": (gan.gen, step.opt_g),
+                      **{f"D{k}": (d, step.opt_d) for k, d in enumerate(gan.discrims)}}
+        self.mods = [m for m in (gan.gen, *gan.discrims, gan.cond_encoder, gan.sample_mapping)
+                     if m is not None]
+
+    def control_draws(self):
+        """The step's draws with the first sample's z drawn anew."""
+        z = self.draws.z.clone()
+        z[0] = torch.randn(z.shape[1:], generator=torch.Generator().manual_seed(1)).to(z)
+        return dataclasses.replace(self.draws, z=z)
+
+    def run(self, dtype, device="cuda", draws=None, threads=None):
+        step = self.step
+        for m in self.mods:
             m.to(device=device, dtype=dtype)
-        start.restore(step)
+        self.start.restore(step)
         for opt in (step.opt_g, step.opt_d):
             for st in opt.state.values():
                 st.update({k: v.to(device) for k, v in st.items() if k != "step"})
-        b = {k: v if k == "lengths" else v.to(device) for k, v in batch.items()}
+        b = {k: v if k == "lengths" else v.to(device) for k, v in self.batch.items()}
         if b["video"].dtype == torch.uint8:
             b["video"] = b["video"].to(dtype) / 127.5 - 1.0
         b["video"] = b["video"].to(dtype)
+        draws = draws or self.draws
         d = dataclasses.replace(draws, z=draws.z.to(device, dtype),
                                 perms=[p.to(device) for p in draws.perms])
-        metrics = {k: float(v) for k, v in step(b, d).items()}
+        n = torch.get_num_threads()
+        if threads:
+            torch.set_num_threads(threads)
+        try:
+            metrics = {k: float(v) for k, v in step(b, d).items()}
+        finally:
+            torch.set_num_threads(n)
         moments = {side: {n: opt.state[p]["exp_avg"].double().cpu()
-                          for n, p in m.named_parameters()} for side, (m, opt) in sides.items()}
+                          for n, p in m.named_parameters()}
+                   for side, (m, opt) in self.sides.items()}
         return metrics, moments
 
-    def worst(mom, ref):
+    def distance(self, mom, ref):
+        """(the worst leaf's max|diff| / leaf scale, "side name")."""
         w, where = 0.0, None
-        for side in sides:
+        for side in self.sides:
             scales = leaf_scales(ref[side])
             for n, r in ref[side].items():
                 err = float((r - mom[side][n]).abs().max()) / scales[n]
@@ -2309,26 +2354,57 @@ def family_float64_step(step, batch, name):
                     w, where = err, f"{side} {n}"
         return w, where
 
-    m64, mom64 = run(torch.float64)
-    m32, mom32 = run(torch.float32)
+    def restore(self):
+        for m in self.mods:
+            m.to(device="cuda", dtype=torch.float32)
+        self.start.restore(self.step)
+
+
+# the float32 step's limit on the CPU: its distance from float64 at each of
+# these thread counts, the largest (each a deterministic order of the sums;
+# one thread takes four times as long as eight at run.sh's width)
+F64_CPU_THREADS = (4, 8)
+
+
+def family_float64_step(step, batch, name):
+    """One float32 step on the card against the same step in float64, from
+    one copied state and one set of draws, cuDNN deterministic (so one tree
+    reads one number): losses within 1e-4 relative, each Adam first moment
+    leaf within 1e-3 of its leaf scale, or, where the worst leaf is further,
+    no further than the same float32 step on the host's CPU at any of
+    F64_CPU_THREADS (BatchNorm at batch statistics after each convolution
+    cancels, so float32 strays at full width). The control, the card's
+    float32 step with one sample's z drawn anew, must fail the rule."""
+    rule = Float64Step(step, batch)
+    with deterministic_cudnn():
+        m64, mom64 = rule.run(torch.float64)
+        m32, mom32 = rule.run(torch.float32)
+        _, mom_ctrl = rule.run(torch.float32, draws=rule.control_draws())
     loss_err = max(abs(m32[k] - m64[k]) / abs(m64[k]) for k in ("loss_d", "loss_g"))
-    card, where = worst(mom32, mom64)
+    card, where = rule.distance(mom32, mom64)
+    control, ctrl_where = rule.distance(mom_ctrl, mom64)
     print(f"phase families: {name}: a float32 step vs the float64 step from one state: "
           f"{m32} vs {m64}; losses rel diff {loss_err:.3g} (tol 1e-4), Adam first moments "
-          f"max|diff| / leaf scale {card:.3g} at {where} (tol 1e-3)")
+          f"max|diff| / leaf scale {card:.3g} at {where} (tol 1e-3); the control (one "
+          f"sample's z drawn anew) {control:.3g} at {ctrl_where}")
     limit = 1e-3
-    if card > limit:
-        t0 = time.perf_counter()
-        _, mom_cpu = run(torch.float32, "cpu")
-        limit, cpu_where = worst(mom_cpu, mom64)
-        print(f"phase families: {name}: the same float32 step on the CPU ({torch.get_num_threads()} "
-              f"threads, {time.perf_counter() - t0:.1f} s) vs the float64 step: {limit:.3g} at "
-              f"{cpu_where}, the card's limit")
-    for m in mods:
-        m.to(device="cuda", dtype=torch.float32)
-    start.restore(step)
+    if max(card, control) > limit:
+        cpu = {}
+        for threads in F64_CPU_THREADS:
+            t0 = time.perf_counter()
+            _, mom_cpu = rule.run(torch.float32, "cpu", threads=threads)
+            cpu[threads] = rule.distance(mom_cpu, mom64)
+            print(f"phase families: {name}: the same float32 step on the CPU ({threads} "
+                  f"threads, {time.perf_counter() - t0:.1f} s) vs the float64 step: "
+                  f"{cpu[threads][0]:.3g} at {cpu[threads][1]}")
+        limit = max(limit, *(v[0] for v in cpu.values()))
+    rule.restore()
+    print(f"phase families: {name}: TCWYT rule: card {card:.3g}, control {control:.3g}, "
+          f"limit {limit:.3g}")
     check(loss_err <= 1e-4 and card <= limit, f"families {name}: the float32 step strays "
           "from the float64 one")
+    check(control > limit, f"families {name}: the rule passes the control step ({control:.3g}"
+          f" <= {limit:.3g})")
 
 
 def timed_family_steps(step, batch, name):
@@ -2385,16 +2461,19 @@ def phase_families(seed):
 
 def _phase_families(root, seed):
     ms = {}
-    # TCWYT at run.sh's full width: 4 steps, then --resume for 2
-    rec, start, _, _ = family_cli("tcwyt", run_sh_argv(root, seed, "--epochs",
-                                                         str(RUN_SH_EPOCHS)))
+    # TCWYT at run.sh's full width: 4 steps, then --resume for 2, cuDNN
+    # deterministic, so the float64 rule below reads one state on one tree
+    with deterministic_cudnn():
+        rec, start, _, _ = family_cli("tcwyt", run_sh_argv(root, seed, "--epochs",
+                                                             str(RUN_SH_EPOCHS)))
     n = RUN_SH_EPOCHS * RUN_SH_CLIPS // RUN_SH_BATCH
     check(len(rec.steps) == n, f"families tcwyt: {len(rec.steps)} steps, {n} expected")
     check(rec.step.gan.discrim_names == ["video", "frame", "motion"],
           f"families tcwyt: --D_names gave {rec.step.gan.discrim_names}")
     moved_and_frozen(rec.step, start, "tcwyt")
-    resumed, _, _, _ = family_cli("tcwyt --resume",
-                                  run_sh_argv(root, seed, "--epochs", "1", "--resume"))
+    with deterministic_cudnn():
+        resumed, _, _, _ = family_cli("tcwyt --resume",
+                                      run_sh_argv(root, seed, "--epochs", "1", "--resume"))
     its = [r["iteration"] for r in resumed.steps]
     check(its == [n, n + 1], f"families tcwyt: --resume ran counters {its}")
     out = root / "tcwyt"
@@ -3021,60 +3100,58 @@ def levers_dispatch(root, seed):
             return out
         return run
 
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     ema_mod.make_ema_update = recording
     states, saved = {}, {}
     n_steps = DISPATCH_EPOCHS * LEVERS_CLIPS // bench.BATCH
     try:
-        for label, k in (("k1", 1), (f"k{DISPATCH_K}", DISPATCH_K)):
-            out = root / f"dispatch_{label}"
-            argv = levers_argv(root, seed, out, "sent.pickle", "--epochs",
-                               str(DISPATCH_EPOCHS), "--save_model_period",
-                               str(DISPATCH_SAVE), "--steps_per_dispatch", str(k))
-            updates.clear()
-            t0 = time.perf_counter()
-            if k > 1:
-                with profiling.trace(str(root / "trace")):
+        with deterministic_cudnn():
+            for label, k in (("k1", 1), (f"k{DISPATCH_K}", DISPATCH_K)):
+                out = root / f"dispatch_{label}"
+                argv = levers_argv(root, seed, out, "sent.pickle", "--epochs",
+                                   str(DISPATCH_EPOCHS), "--save_model_period",
+                                   str(DISPATCH_SAVE), "--steps_per_dispatch", str(k))
+                updates.clear()
+                t0 = time.perf_counter()
+                if k > 1:
+                    with profiling.trace(str(root / "trace")):
+                        rec = run_cli(argv, "levers", TRAIN_LAUNCHES, torch.float32)
+                else:
                     rec = run_cli(argv, "levers", TRAIN_LAUNCHES, torch.float32)
-            else:
-                rec = run_cli(argv, "levers", TRAIN_LAUNCHES, torch.float32)
-            run_s = time.perf_counter() - t0
-            check(len(rec.steps) == n_steps, f"{label}: {len(rec.steps)} steps")
-            states[label] = checkpoint.to_host(torch_state_to_jax(rec.step))
-            saved[label] = sorted(int(p.name.split("_")[1]) for p in out.glob("iter_*")
-                                  if p.suffix != ".ema")
-            its = list(range(k, n_steps + 1, k))
-            check(saved[label] == sorted(set(chunk_saves(its, DISPATCH_SAVE, k))),
-                  f"{label}: checkpoints at {saved[label]}, the JAX trainer's rule gives "
-                  f"{chunk_saves(its, DISPATCH_SAVE, k)}")
-            check(len(updates) == n_steps // k and all(u[0] == k for u in updates)
-                  and max(u[1] for u in updates) <= 1e-6,
-                  f"{label}: EMA updates {updates}")
-            print(f"phase levers: {label}: {n_steps} steps in {run_s:.2f} s, checkpoints at "
-                  f"{saved[label]}, {len(updates)} EMA updates of weight 1 - 0.999**{k} "
-                  f"(max|diff| / max(1, max|value|) {max(u[1] for u in updates):.3g}, tol "
-                  f"1e-6)")
-        fa, fb = dict(_flat(states["k1"])), dict(_flat(states[f"k{DISPATCH_K}"]))
-        diff = max(float(np.abs(fa[n].astype(np.float64) - fb[n]).max()) for n in fa
-                   if fa[n].dtype.kind == "f")
-        spread = None
-        if diff:
-            out = root / "dispatch_k1_again"
-            rec = run_cli(levers_argv(root, seed, out, "sent.pickle", "--epochs",
-                                      str(DISPATCH_EPOCHS)), "levers", TRAIN_LAUNCHES,
-                          torch.float32)
-            fc = dict(_flat(checkpoint.to_host(torch_state_to_jax(rec.step))))
-            spread = max(float(np.abs(fa[n].astype(np.float64) - fc[n]).max()) for n in fa
-                         if fa[n].dtype.kind == "f")
-        print(f"phase levers: k = {DISPATCH_K} against k = 1 after {n_steps} steps: "
-              f"max|diff| {diff:.3g} over the state's leaves"
-              + (f", a second k = 1 run {spread:.3g} from the first (tol 2x)" if diff else
-                 " (bit for bit)"))
-        check(diff == 0 or diff <= 2 * spread, "k-step dispatch strays from single steps")
+                run_s = time.perf_counter() - t0
+                check(len(rec.steps) == n_steps, f"{label}: {len(rec.steps)} steps")
+                states[label] = checkpoint.to_host(torch_state_to_jax(rec.step))
+                saved[label] = sorted(int(p.name.split("_")[1]) for p in out.glob("iter_*")
+                                      if p.suffix != ".ema")
+                its = list(range(k, n_steps + 1, k))
+                check(saved[label] == sorted(set(chunk_saves(its, DISPATCH_SAVE, k))),
+                      f"{label}: checkpoints at {saved[label]}, the JAX trainer's rule gives "
+                      f"{chunk_saves(its, DISPATCH_SAVE, k)}")
+                check(len(updates) == n_steps // k and all(u[0] == k for u in updates)
+                      and max(u[1] for u in updates) <= 1e-6,
+                      f"{label}: EMA updates {updates}")
+                print(f"phase levers: {label}: {n_steps} steps in {run_s:.2f} s, checkpoints at "
+                      f"{saved[label]}, {len(updates)} EMA updates of weight 1 - 0.999**{k} "
+                      f"(max|diff| / max(1, max|value|) {max(u[1] for u in updates):.3g}, tol "
+                      f"1e-6)")
+            fa, fb = dict(_flat(states["k1"])), dict(_flat(states[f"k{DISPATCH_K}"]))
+            diff = max(float(np.abs(fa[n].astype(np.float64) - fb[n]).max()) for n in fa
+                       if fa[n].dtype.kind == "f")
+            spread = None
+            if diff:
+                out = root / "dispatch_k1_again"
+                rec = run_cli(levers_argv(root, seed, out, "sent.pickle", "--epochs",
+                                          str(DISPATCH_EPOCHS)), "levers", TRAIN_LAUNCHES,
+                              torch.float32)
+                fc = dict(_flat(checkpoint.to_host(torch_state_to_jax(rec.step))))
+                spread = max(float(np.abs(fa[n].astype(np.float64) - fc[n]).max()) for n in fa
+                             if fa[n].dtype.kind == "f")
+            print(f"phase levers: k = {DISPATCH_K} against k = 1 after {n_steps} steps: "
+                  f"max|diff| {diff:.3g} over the state's leaves"
+                  + (f", a second k = 1 run {spread:.3g} from the first (tol 2x)" if diff else
+                     " (bit for bit)"))
+            check(diff == 0 or diff <= 2 * spread, "k-step dispatch strays from single steps")
     finally:
         ema_mod.make_ema_update = make_update
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
     (trace,) = (root / "trace").glob("*.pt.trace.json")
     events = json.loads(trace.read_text())["traceEvents"]
@@ -3548,6 +3625,8 @@ REDDIT_G = json.dumps({"class": "txt2vid_tpu.models.tganv2_cond.MultiScaleGen",
                        "args": {"width": 128, "height": 128, "num_frames": REDDIT_FRAMES}})
 # a process for a CLI run compared bit for bit: cuDNN held to deterministic
 # algorithms, as phase levers holds it
+# (e)'s --steps_per_dispatch
+PARALLEL_K = 2
 DETERMINISTIC_CLI = ("import runpy, sys, torch; torch.backends.cudnn.deterministic = True; "
                      "torch.backends.cudnn.benchmark = False; sys.argv[0] = 'gan'; "
                      "runpy.run_module('txt2vid_tpu_torch.train.gan', run_name='__main__')")
@@ -3687,6 +3766,154 @@ def parallel_nccl_cli(root, seed):
     return {"collectives": coll, "losses": losses["nccl"]}
 
 
+@contextlib.contextmanager
+def torchrun_env():
+    """torchrun's environment of a world of one on this card inside the
+    block (the training CLI starts an NCCL group from it; --device_data
+    refuses --multihost, as the JAX CLI does); the old one after."""
+    keys = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def parallel_cli_run(argv, out, what, group):
+    """train_gan.main in-process on argv (--out `out`), under torchrun's
+    environment of a world of one (`group`) or without a group, cuDNN
+    deterministic: every
+    step finite at TRAIN_LAUNCHES, each with its collectives, and each
+    steps_per_dispatch chunk's collectives. Returns (recorder, the run's
+    collectives, the chunks' collectives, the checkpoints' directory and
+    names)."""
+    from txt2vid_tpu_torch.gan.train_step import ChunkStep
+    from txt2vid_tpu_torch.parallel.collectives import COUNTS, reset_counts
+    chunks, chunk_call = [], ChunkStep.__call__
+
+    def counted(step, chunk):
+        before = dict(COUNTS)
+        out = chunk_call(step, chunk)
+        chunks.append({f"{b}/{op}": n - before.get((b, op), 0)
+                       for (b, op), n in COUNTS.items() if n != before.get((b, op), 0)})
+        return out
+
+    reset_counts()
+    zero_counts()
+    ChunkStep.__call__ = counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            if group:
+                stack.enter_context(torchrun_env())
+            stack.enter_context(deterministic_cudnn())
+            rec = stack.enter_context(StepRecorder())
+            train_gan.main(train_gan.build_parser().parse_args(argv))
+    finally:
+        ChunkStep.__call__ = chunk_call
+    check(not torch.distributed.is_initialized(), f"parallel: {what}: main left its group")
+    check(group == ("nccl/all_reduce" in {f"{b}/{op}" for b, op in COUNTS}),
+          f"parallel: {what}: NCCL collectives {dict(COUNTS)}")
+    for st in rec.steps:
+        check(all(math.isfinite(v) for v in st["metrics"].values()),
+              f"parallel: {what}: a step is not finite: {st['metrics']}")
+        check(st["launches"] == TRAIN_LAUNCHES,
+              f"parallel: {what}: a step launched {st['launches']}, not {TRAIN_LAUNCHES}")
+    files = sorted(p.name for p in out.glob("iter_*"))
+    coll = {f"{b}/{op}": n for (b, op), n in sorted(COUNTS.items())}
+    print(f"phase parallel: {what}: {len(rec.steps)} steps in {time.perf_counter() - t0:.2f} s "
+          f"(ms {[round(s['ms'], 2) for s in rec.steps]}), launches per step "
+          f"{[s['launches'] for s in rec.steps]}, collectives {coll}, checkpoints {files}")
+    return rec, coll, chunks, out, files
+
+
+def same_run(runs, what):
+    """The plain run and the NCCL run of `runs`: the same metrics at every
+    step and the same checkpoint files, byte for byte."""
+    (rec_a, _, _, out_a, files_a), (rec_b, _, _, out_b, files_b) = runs["plain"], runs["nccl"]
+    metrics = [[s["metrics"] for s in r.steps] for r in (rec_a, rec_b)]
+    check(metrics[0] == metrics[1], f"parallel: {what}: the metrics differ: {metrics}")
+    check(files_a == files_b and files_a, f"parallel: {what}: checkpoints {files_a} {files_b}")
+    check(all((out_a / n).read_bytes() == (out_b / n).read_bytes() for n in files_a),
+          f"parallel: {what}: a checkpoint differs between the runs")
+    print(f"phase parallel: {what}: {len(metrics[0])} steps and {files_a} bit for bit with and "
+          f"without the NCCL group")
+
+
+def parallel_device_data(root, seed):
+    """(d): phase cli's command line with --device_data on (b)'s clips,
+    packed, for 2 steps in-process without a group and under an NCCL group
+    of world size 1 (torchrun's environment), cuDNN deterministic: the same
+    metrics, the checkpoint and .ema byte for byte, the cache on the card
+    (its bytes), 17 / 13 / 13 launches a step, the NCCL collectives the CLI
+    counts."""
+    from txt2vid_tpu_torch.data import device_cache
+    packed.pack_directory(root / "videos", root / "clips.t2vc")
+    made, from_dataset = [], device_cache.DeviceVideoData.from_dataset.__func__
+    device_cache.DeviceVideoData.from_dataset = classmethod(
+        lambda cls, *a, **k: made.append(from_dataset(cls, *a, **k)) or made[-1])
+    runs = {}
+    try:
+        for what in ("plain", "nccl"):
+            out = root / f"device_data_{what}"
+            argv = cli_argv(root, seed, "--epochs", "1", "--save_model_period", "2",
+                            "--device_data", "--out", str(out), "--out_samples",
+                            str(out / "samples"))
+            # the same clips, packed
+            spec = json.loads(argv[argv.index("--data") + 1])
+            argv[argv.index("--data") + 1] = json.dumps(
+                {"class": "txt2vid_tpu.data.packed.packed_dataset",
+                 "args": dict(spec["args"], data=str(root / "clips.t2vc"))})
+            runs[what] = parallel_cli_run(argv, out, f"d: {what}", what == "nccl")
+    finally:
+        device_cache.DeviceVideoData.from_dataset = classmethod(from_dataset)
+    same_run(runs, "d")
+    cache = made[-1]
+    check(cache.device_arrays()["videos"].is_cuda, "parallel: d: the cache is not on the card")
+    check(cache.nbytes == cache.videos.nbytes + 8 * cache.num_pairs + 8 * cache.captions.size,
+          f"parallel: d: the cache holds {cache.nbytes} bytes")
+    rec, coll = runs["nccl"][0], runs["nccl"][1]
+    per_step = [s["collectives"] for s in rec.steps]
+    check(len(rec.steps) == 2 and all(c == per_step[0] for c in per_step)
+          and sum(n for k, n in per_step[0].items() if k.startswith("nccl/")) > 0,
+          f"parallel: d: the steps' collectives {per_step}")
+    print(f"phase parallel: d: a {cache.num_pairs}-pair cache of {cache.nbytes} bytes on the "
+          f"card; NCCL collectives {coll}, per step {per_step[0]}")
+    return {"launches": counts(), "per_step": rec.steps[0]["launches"], "bytes": cache.nbytes,
+            "collectives": coll, "step_collectives": per_step[0]}
+
+
+def parallel_dispatch(root, seed, step_collectives):
+    """(e): phase cli's command line with --steps_per_dispatch 2 on (b)'s
+    clips for 2 epochs (4 steps in 2 chunks), in-process without a group and
+    under an NCCL group of world size 1, cuDNN deterministic: bit for bit,
+    17 / 13 / 13 launches a step, and per chunk k times the collectives of
+    one step of (d)."""
+    runs = {}
+    for what in ("plain", "nccl"):
+        out = root / f"dispatch_{what}"
+        runs[what] = parallel_cli_run(
+            cli_argv(root, seed, "--epochs", "2", "--save_model_period", "4",
+                     "--steps_per_dispatch", str(PARALLEL_K), "--out", str(out),
+                     "--out_samples", str(out / "samples")), out, f"e: {what}", what == "nccl")
+    same_run(runs, "e")
+    rec, coll, chunks = runs["nccl"][:3]
+    want = {k: PARALLEL_K * n for k, n in step_collectives.items()}
+    check(len(rec.steps) == 2 * PARALLEL_K and len(chunks) == 2
+          and all(c == want for c in chunks)
+          and all(s["collectives"] == step_collectives for s in rec.steps),
+          f"parallel: e: chunks' collectives {chunks}, {PARALLEL_K} x one step's is {want}")
+    print(f"phase parallel: e: {len(chunks)} chunks of {PARALLEL_K} steps, each chunk's "
+          f"collectives {chunks[0]} = {PARALLEL_K} x one step's; the run's {coll}")
+    return {"launches": counts(), "collectives": coll, "chunk_collectives": chunks[0]}
+
+
 def parallel_reddit(root, seed):
     """(c): scripts/run_reddit.sh's configuration at full width (128 px, 32
     frames, frame sizes 16/32/64/128, bf16, batch 32) for 2 steps under an
@@ -3762,8 +3989,10 @@ def phase_parallel(seed):
     """The parallel layer on one card: (a) the ring's block math at the
     flagships' attention shapes, (b) the training CLI under an NCCL group of
     world size 1 against the same run without one, (c) run_reddit.sh's
-    configuration for 2 steps under that group and (a) at its shapes.
-    Returns (c)'s launch counts, the main path of the phase."""
+    configuration for 2 steps under that group and (a) at its shapes, (d)
+    --device_data and (e) --steps_per_dispatch 2 under that group against
+    no group. Returns (c)'s launch counts, the main path of the phase, with
+    (d)'s and (e)'s records."""
     t0 = time.perf_counter()
     before = fused_attention.launches
     ring = ring_checks(RING_SHAPES, seed)
@@ -3778,6 +4007,13 @@ def phase_parallel(seed):
         t1 = time.perf_counter()
         reddit = parallel_reddit(root / "reddit", seed)
         print(f"phase parallel: c: {time.perf_counter() - t1:.2f} s")
+        t1 = time.perf_counter()
+        reddit["device_data"] = parallel_device_data(root / "cli", seed)
+        print(f"phase parallel: d: {time.perf_counter() - t1:.2f} s")
+        t1 = time.perf_counter()
+        reddit["dispatch"] = parallel_dispatch(root / "cli", seed,
+                                               reddit["device_data"]["step_collectives"])
+        print(f"phase parallel: e: {time.perf_counter() - t1:.2f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     reddit["ring"] = ring_checks(reddit["ring_shapes"], seed)
@@ -3870,9 +4106,14 @@ def main():
         r["launches_per_step"] = TRAIN_LAUNCHES[r["name"]]
         r["cond128_launches"] = bf16["cond128"][r["name"]]
     bf16_records[0]["serve_launches"] = bf16["serve"]
-    # phase parallel's main path: run_reddit.sh's 2 bf16 steps under the NCCL group
+    # phase parallel's main path: run_reddit.sh's 2 bf16 steps under the NCCL group,
+    # and the float32 steps of --device_data (d) and --steps_per_dispatch (e)
+    # under it and without it (2 and 4 steps each)
     for r in records + bf16_records:
         r["parallel_launches"] = parallel["launches"][r["name"]]
+    for r in records:
+        r["parallel_device_data_launches"] = parallel["device_data"]["launches"][r["name"]]
+        r["parallel_dispatch_launches"] = parallel["dispatch"]["launches"][r["name"]]
     check(all(r["launches"] for r in records + bf16_records),
           "a kernel was not launched on its main path")
     print(smi)

@@ -325,3 +325,69 @@ def test_remat_recomputes_in_the_forwards_context_on_the_card():
           f"{'another thread than' if seen[1][2] != seen[0][2] else 'the thread of'} the forward")
     for a, b in zip(plain, got):
         assert torch.equal(a, b)
+
+
+def test_device_data_step_assembles_its_dp_rows_on_the_card():
+    """DeviceDataStep on the card under a stand-in mesh of dp index 1 of 2:
+    the batch is the second half of the global draw's assembly, and the
+    step on it launches K1, K2 and K3 as many times as the same step on
+    that half copied from the host."""
+    import types
+
+    import numpy as np
+
+    from txt2vid_tpu_torch.data.device_cache import DeviceDataStep, DeviceVideoData
+    from txt2vid_tpu_torch.gan import losses
+    from txt2vid_tpu_torch.gan.cond_gan import CondGan
+    from txt2vid_tpu_torch.gan.train_step import TrainConfig, adam, build_train_step
+    from txt2vid_tpu_torch.models import tganv2
+    from txt2vid_tpu_torch.models.txt import Seq2Seq
+    from txt2vid_tpu_torch.ops.initializers import init_from_seed
+
+    kernels = (fused_attention, attention_bwd_dq, attention_bwd_dkv)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(2, 7, 16).astype(np.int32)
+    caps = rng.integers(1, 20, (16, 6)).astype(np.int32)
+    caps[np.arange(6)[None, :] >= lens[:, None]] = 0
+    data = DeviceVideoData(rng.integers(0, 256, (12, 8, 32, 32, 3), dtype=np.uint8),
+                           rng.integers(0, 12, 16), caps, lens, num_frames=8)
+    data.device_arrays(torch.device("cuda"))
+
+    def stand_in_step(dp_index, dp):
+        gen = init_from_seed(tganv2.MultiScaleGen(
+            latent_size=8, width=32, height=32, fm_channels=32, additional_blocks=(32, 16),
+            num_frames=8, cond_dim=16, with_non_local=True), 1)
+        disc = init_from_seed(tganv2.MultiScaleDiscrim(discrim_down_blocks=(1, 1, 1),
+                                                       cond_dim=16), 2)
+        enc = init_from_seed(Seq2Seq(vocab_size=20, embed_size=8, hidden_size=16,
+                                     num_layers=1), 3)
+        gan = CondGan(gen.cuda(), enc.cuda(), discrims=[disc.cuda()])
+        # the local step alone: the mesh's global semantics need a group
+        mesh = types.SimpleNamespace(
+            dp_index=dp_index, dp=dp, run=lambda step, batch, draws, subsampled: step.run(batch),
+            reduce_grads_=lambda grads: None, optimizer_step=lambda opt: opt.step(),
+            sum_=lambda x: x.detach().clone())
+        return build_train_step(gan, losses.RSGANLoss(), adam(gen.parameters()),
+                                adam(disc.parameters()),
+                                TrainConfig(frame_sizes=(8, 16, 32), subsample_input=True,
+                                            latent_size=8), seed=5, mesh=mesh)
+
+    wrapped = DeviceDataStep(stand_in_step(1, 2), data, 6, seed=9)
+    idx, phase = data.draw(9, 0, 6)
+    whole, half = data.assemble(idx, phase), wrapped.batch()
+    assert half["video"].is_cuda and half["video"].shape[0] == 3
+    for key in whole:
+        assert torch.equal(half[key].cpu(), whole[key][3:].cpu()), key
+    before = [k.launches for k in kernels]
+    metrics = wrapped({})
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+            data.host_batch(idx[3:].numpy()).items()}
+    host = {k: v if k == "lengths" else v.long().cuda() if k == "captions" else v.cuda()
+            for k, v in host.items()}
+    before = [k.launches for k in kernels]
+    plain = stand_in_step(1, 2)
+    plain(host)
+    assert launched == [k.launches - b for k, b in zip(kernels, before)]
+    assert all(n > 0 for n in launched)
+    assert all(torch.isfinite(v).all() for v in metrics.values())

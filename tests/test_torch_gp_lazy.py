@@ -3,13 +3,15 @@
 gp_lambda * gp_every), step 1 skips it. Each port step starts from a file the
 JAX package wrote of the JAX state before it, so step 1 also checks that the
 restored step counter sets the lazy-GP phase. The harness and tolerances are
-test_torch_gp_step's; step 1, from a trained state, holds the moments to 1e-3
+test_torch_gp_step's, one intra-op thread with the port's G held to the
+float64 step there; step 1, from a trained state, holds the moments to 1e-3
 (port) and 2e-3 (JAX) of the leaf scale.
 """
 
 import pytest
 
-from test_torch_gp_step import check_losses_and_norms, check_moments, check_params, run_case
+from test_torch_gp_step import (_one_torch_thread, check_losses_and_norms,  # noqa: F401
+                                check_moments, check_params, run_case)
 
 
 @pytest.fixture(scope="module")

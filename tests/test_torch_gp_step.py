@@ -33,10 +33,17 @@ float64 first moment is below 3e-2 of the leaf scale: there the moments'
 float noise is a large share of the element, Adam's normalised update can
 take any direction, and 2 * lr per update is allowed.
 
-The float32 sides are held at torch's default intra-op thread count: with 1,
-2 or 4 threads (of 8 cores) torch's CPU BatchNorm backward sums in another
-order, and the generator's BatchNorm weight gradients sit up to 8e-3 of
-their leaf scale from the float64 step (measured), with 3 or 8 within 4e-5.
+Torch runs on one intra-op thread (beside other test processes its thread
+pool oversubscribes the cores). With 1, 2 or 4 threads (of 8 cores) torch's
+CPU BatchNorm backward sums in another order, and the port's G gradients sit
+up to 8e-3 of their leaf scale from the float64 step (measured; with 3 or 8
+threads within 4e-5), its G norm 1.7e-4 relative: the port's G moments are
+held to the float64 step within test_torch_train_step's G_F64_TOL, its G
+norm within G_F64_NORM_TOL, its G parameters within G_PARAM_TOL where not
+sign-free (measured 8.3e-6: fc.weight's gradients, about 1e-7 to 3e-6, sit
+near Adam's eps, where the update's size follows the gradient's); JAX's G
+norm is held to the float64 step's at 1e-4 too. D's side and the losses are
+as above.
 """
 
 import jax
@@ -47,8 +54,9 @@ import pytest
 import torch
 
 from test_torch_models import jax_variables
-from test_torch_train_step import (B, DISC, ENC, FRAME_SIZES, GEN, LR, _leaf_scales, host,
-                                   jax_state, make_batch, one_torch_thread)
+from test_torch_train_step import (B, DISC, ENC, FRAME_SIZES, G_F64_NORM_TOL, G_F64_TOL,
+                                   G_PARAM_TOL, GEN, LR, _leaf_scales,
+                                   _one_torch_thread, host, jax_state, make_batch)  # noqa: F401
 from txt2vid_tpu.gan import losses as jax_losses
 from txt2vid_tpu.gan.cond_gan import CondGan as JaxCondGan
 from txt2vid_tpu.gan.train_step import TrainConfig as JaxTrainConfig
@@ -240,9 +248,9 @@ def run_case(tmp, name, steps, record_d_draws=False):
         jax_checkpoint.save_state(before, str(path))
         port, port_metrics = port_step(path, cfg, i, draws)
         assert port.step == i + 1
-        f64, _ = port_step(path, cfg, i, draws, float64=True)
+        f64, f64_metrics = port_step(path, cfg, i, draws, float64=True)
         out.append(dict(new=new, metrics=metrics, draws=draws, port=port,
-                        port_metrics=port_metrics, f64=f64))
+                        port_metrics=port_metrics, f64=f64, f64_metrics=f64_metrics))
         before = new
     return out
 
@@ -269,32 +277,39 @@ def _jax_moments(tree, side, which):
 
 
 def check_losses_and_norms(r):
-    for k in ("loss_d", "loss_g"):
+    """Losses and D's norm against JAX's; G's norm, both sides against the
+    float64 step's (the port's within G_F64_NORM_TOL)."""
+    for k, tol in (("loss_d", 1e-5), ("loss_g", 1e-5), ("grad_norm_d", 1e-4)):
         ref, got = float(r["metrics"][k]), r["port_metrics"][k]
-        assert np.isfinite(got) and abs(got - ref) <= 1e-5 * abs(ref), (k, ref, got)
-    for k in ("grad_norm_d", "grad_norm_g"):
-        ref, got = float(r["metrics"][k]), r["port_metrics"][k]
-        assert got > 0 and abs(got - ref) <= 1e-4 * abs(ref), (k, ref, got)
+        assert np.isfinite(got) and got > 0 and abs(got - ref) <= tol * abs(ref), (k, ref, got)
+    ref = r["f64_metrics"]["grad_norm_g"]
+    for who, got, tol in (("port", r["port_metrics"]["grad_norm_g"], G_F64_NORM_TOL),
+                          ("jax", float(r["metrics"]["grad_norm_g"]), 1e-4)):
+        print(f"grad_norm_g {who} vs float64: {abs(got - ref) / abs(ref):.3g} (tol {tol})")
+        assert got > 0 and abs(got - ref) <= tol * abs(ref), (who, "grad_norm_g", ref, got)
     assert set(r["port_metrics"]) == set(r["metrics"])
 
 
 def check_moments(r, side, which, tols=(1e-4, 5e-4)):
     """Both sides' moments against the float64 step's: tols = (port, JAX),
-    of the floored leaf scale."""
+    of the floored leaf scale; the port's G within G_F64_TOL."""
     ref = _moments(r["f64"], side, which)
     scales, null, bound = _leaf_scales(ref)
     assert len(null) < len(ref) // 4
-    sides = {"port": (_moments(r["port"], side, which), tols[0]),
+    sides = {"port": (_moments(r["port"], side, which), G_F64_TOL if side == "G" else tols[0]),
              "jax": (_jax_moments(r["new"], side, which), tols[1])}
     for who, (got, tol) in sides.items():
         assert set(got) == set(ref)
+        worst = 0.0
         for n, want in ref.items():
             g = got[n].double()
             if n in null:
                 assert float(g.abs().max()) < bound, f"{who} {side} {n} is not null"
                 continue
             err = float((want - g).abs().max())
+            worst = max(worst, err / scales[n])
             assert err <= tol * scales[n], f"{who} {side} {which} {n}: {err} > {tol} * {scales[n]}"
+        print(f"{who} {side} {which} vs float64: {worst:.3g} of the leaf scale (tol {tol})")
 
 
 def check_params(r, side, n_updates=1):
@@ -305,11 +320,15 @@ def check_params(r, side, n_updates=1):
                   else jax_to_torch_discriminator(r["new"].d_vars[0]["params"]))
     port_params = {n: p.detach() for n, p in _module(r["port"], side).named_parameters()}
     for who, got in (("port", port_params), ("jax", jax_params)):
+        tol = G_PARAM_TOL if (who, side) == ("port", "G") else 1e-6
+        worst = 0.0
         for n, want in ref.items():
             free = ((grads[n].abs() < 3e-2 * scales[n]) | (n in null)).numpy()
             diff = (want - got[n].double()).abs().numpy()
-            assert float(diff[~free].max(initial=0.0)) <= 1e-6, (who, n)
+            worst = max(worst, float(diff[~free].max(initial=0.0)))
+            assert float(diff[~free].max(initial=0.0)) <= tol, (who, n)
             assert float(diff[free].max(initial=0.0)) <= 2 * n_updates * LR + 1e-6, (who, n)
+        print(f"{who} {side} parameters vs float64: {worst:.3g} where not sign-free (tol {tol})")
 
 
 @pytest.fixture(scope="module")
@@ -365,7 +384,7 @@ def test_step_counter_and_counts_written_back(run):
     assert int(tree["opt_d_state"]["0"]["count"]) == int(run["new"].opt_d_state[0].count) == 2
 
 
-def test_quarantine_split_equals_the_fused_step(tmp_path, one_torch_thread):
+def test_quarantine_split_equals_the_fused_step(tmp_path):
     """main + gp_only (gp_quarantine) is the fused GP step: the same losses,
     norms, moments and parameters (float32, 1e-6 relative: only the order of
     the gradient sums differs)."""

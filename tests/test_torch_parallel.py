@@ -46,7 +46,8 @@ gen_perm_device and _interpolate) are the global draws every rank is given.
 - the training CLI: two processes with --multihost against each other
   (rank-0-only checkpoints that the JAX package restores, --resume), fsdp=2
   under torchrun's environment against one process (rank 0's checkpoint
-  byte for byte), the refusals.
+  byte for byte), the refusals; --device_data and --steps_per_dispatch
+  across ranks are tests/test_torch_parallel_levers.py's.
 """
 
 import os
@@ -793,8 +794,8 @@ def test_fsdp2_cli_checkpoints_equal_the_one_process_ones(cli_data, tmp_path):
 
 def test_refusals(cli_data, tmp_path):
     """The JAX CLI's refusals under --multihost, with its messages; --sp 2 on
-    one process names the sizes; the combinations not yet across ranks raise
-    naming themselves."""
+    one process names the sizes; --device_data and --steps_per_dispatch 2
+    pass the world check at a world size above 1, and --test does not."""
     from txt2vid_tpu_torch.train import gan
     argv = cli_argv(cli_data, tmp_path)[2:]
     for extra, message in (
@@ -807,8 +808,10 @@ def test_refusals(cli_data, tmp_path):
         gan.cli(argv + ["--sp", "2"])
     with pytest.raises(ValueError, match="--clip_grad_split with fsdp state shardings"):
         gan.cli(argv + ["--fsdp", "2", "--clip_grad_split"])
-    for extra, flag in ((["--device_data"], "--device_data"),
-                        (["--steps_per_dispatch", "2"], "--steps_per_dispatch")):
-        with pytest.raises(NotImplementedError, match=flag):
-            gan.check_world_flags(gan.build_parser().parse_args(argv + extra), 2)
-        gan.check_world_flags(gan.build_parser().parse_args(argv + extra), 1)
+    for extra in (["--device_data"], ["--steps_per_dispatch", "2"]):
+        for world in (1, 2):
+            gan.check_world_flags(gan.build_parser().parse_args(argv + extra), world)
+    with pytest.raises(SystemExit, match="--test sampling is single-process"):
+        gan.check_world_flags(gan.build_parser().parse_args(argv + ["--test"]), 2)
+    with pytest.raises(ValueError, match="--device_data implies --steps_per_dispatch 1"):
+        gan.cli(argv + ["--device_data", "--steps_per_dispatch", "2"])

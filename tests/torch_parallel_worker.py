@@ -5,11 +5,13 @@
 
 joins a gloo group of n ranks on the CPU and runs each job of JOBS.pkl in
 order: a train step of the port under a parallel.Mesh ("step", from a
-train-state file and a global batch and global draws), or ring attention
-over an sp group ("ring"). Writes OUT_DIR/rank{r}.pkl: per job its metrics,
-the gathered train state as the JAX tree (numpy), the shapes of the state at
-rest and the collectives the step issued, or the ring's output and
-gradients. Imports torch and the port only.
+train-state file and a global batch and global draws), steps that assemble
+their batches from a device-resident dataset ("device_steps", through
+DeviceDataStep), or ring attention over an sp group ("ring"). Writes
+OUT_DIR/rank{r}.pkl: per job its metrics, the gathered train state as the
+JAX tree (numpy), the shapes of the state at rest and the collectives the
+step issued, or the ring's output and gradients. Imports torch and the port
+only.
 """
 
 import os
@@ -31,7 +33,7 @@ from txt2vid_tpu_torch.gan.train_step import (Draws, TrainConfig, adam,  # noqa:
                                               build_train_step, optimizer_params)
 from txt2vid_tpu_torch.models import tganv2  # noqa: E402
 from txt2vid_tpu_torch.models.txt import Seq2Seq  # noqa: E402
-from txt2vid_tpu_torch.utils.checkpoint import restore_state, to_host  # noqa: E402
+from txt2vid_tpu_torch.utils.checkpoint import restore_state, save_state, to_host  # noqa: E402
 
 
 def build_step(job, mesh=None):
@@ -81,6 +83,48 @@ def run_step(job):
             "coords": (mesh.dp_index, mesh.sp_index, mesh.fsdp_index)}
 
 
+def run_device_steps(job):
+    """job["steps"] steps of DeviceDataStep over job["data"] (the
+    DeviceVideoData's arguments) at global batch job["batch_size"], under a
+    Mesh of job["mesh"], or on one process when it is None; the state after
+    each step (with job["save_to"], rank 0 writes it to save_to/step{s}).
+    With job["loader"] the same steps take the host batches of the same
+    draws instead, this rank's rows of each cut by dp_slice and copied as
+    the loader's are (train.gan.device_batches)."""
+    import contextlib
+    from txt2vid_tpu_torch.data.device_cache import DeviceDataStep, DeviceVideoData
+    from txt2vid_tpu_torch.parallel import dp_slice
+    from txt2vid_tpu_torch.train.gan import device_batches
+    mesh = None
+    if job["mesh"] is not None:
+        from txt2vid_tpu_torch.parallel import Mesh
+        mesh = Mesh(**job["mesh"])
+    step = build_step(job, mesh)
+    if mesh is not None:
+        mesh.shard_state(step)
+    data = DeviceVideoData(**job["data"])
+    data.device_arrays("cpu")
+    wrapped = DeviceDataStep(step, data, job["batch_size"], seed=job["data_seed"])
+    local = len(wrapped.batch()["video"])
+
+    def loader_batch():
+        idx, _ = data.draw(job["data_seed"], step.step, job["batch_size"])
+        rows = dp_slice(data.host_batch(idx.numpy()), *((mesh.dp_index, mesh.dp) if mesh
+                                                        else (0, 1)))
+        return next(device_batches([rows], torch.device("cpu"), 0))
+
+    metrics, states = [], []
+    for s in range(job["steps"]):
+        out = step(loader_batch()) if job.get("loader") else wrapped({})
+        metrics.append({k: float(v) for k, v in out.items()})
+        with mesh.full_state() if mesh is not None else contextlib.nullcontext():
+            states.append(to_host(torch_state_to_jax(step)))
+            if job.get("save_to") and (mesh is None or mesh.rank == 0):
+                save_state(torch_state_to_jax(step), Path(job["save_to"]) / f"step{s}")
+    return {"metrics": metrics, "states": states, "state": states[-1], "local_batch": local,
+            "coords": None if mesh is None else (mesh.dp_index, mesh.sp_index, mesh.fsdp_index)}
+
+
 def run_ring(job):
     from txt2vid_tpu_torch.ops.ring_attention import ring_attention
     from txt2vid_tpu_torch.parallel import Mesh
@@ -100,7 +144,8 @@ def main():
     out = []
     try:
         for job in jobs:
-            out.append(run_step(job) if job["kind"] == "step" else run_ring(job))
+            out.append({"step": run_step, "device_steps": run_device_steps,
+                        "ring": run_ring}[job["kind"]](job))
     finally:
         dist.destroy_process_group()
     with open(out_dir / f"rank{os.environ['RANK']}.pkl", "wb") as f:

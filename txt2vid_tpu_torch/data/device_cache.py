@@ -18,6 +18,12 @@ Semantics, as the JAX package's (device_cache.py:20-29):
 The draws come from a CPU torch.Generator seeded from (seed, step, 0xda7a)
 (`draw`), where JAX folds (step, 0xda7a) into its key; `assemble` takes them
 as arguments, so a test can feed it JAX's own.
+
+Across ranks (jit_device_data_step over a mesh, device_cache.py:169-209)
+every rank uploads the whole dataset to its card, as JAX replicates it over
+the mesh, and draws the global batch's indices and phase, identical on
+every rank; it assembles only its dp rows of them (`DeviceDataStep`), as
+JAX reshards the assembled batch to the dp axis.
 """
 
 import numpy as np
@@ -159,8 +165,13 @@ class DeviceVideoData:
 class DeviceDataStep:
     """A train step that ignores the batch it is given and runs the wrapped
     TrainStep on the batch it assembles from `data` at its step counter
-    (JAX's jit_device_data_step). Every other attribute is the wrapped
-    step's."""
+    (JAX's jit_device_data_step). `batch_size` is the global batch: under
+    the wrapped step's `mesh` each rank assembles its dp rows of the global
+    draw, rows [dp_index * local, (dp_index + 1) * local) as
+    parallel.dp_slice cuts a loader's batch (the sp and fsdp peers of a rank
+    take the same rows), and the mesh draws the global batch's z,
+    derangements and GP weights for them (parallel.Mesh.run). Every other
+    attribute is the wrapped step's."""
 
     def __init__(self, step, data: DeviceVideoData, batch_size: int, seed: int = 0):
         self.inner, self.data, self.batch_size, self.seed = step, data, batch_size, seed
@@ -169,9 +180,13 @@ class DeviceDataStep:
         return getattr(self.inner, name)
 
     def batch(self) -> dict:
-        """The batch of the wrapped step's next step."""
-        return self.data.assemble(*self.data.draw(self.seed, self.inner.step,
-                                                  self.batch_size))
+        """This rank's rows of the batch of the wrapped step's next step."""
+        idx, phase = self.data.draw(self.seed, self.inner.step, self.batch_size)
+        mesh = self.inner.mesh
+        if mesh is not None:
+            from txt2vid_tpu_torch.parallel import dp_slice
+            idx = dp_slice({"idx": idx}, mesh.dp_index, mesh.dp)["idx"]
+        return self.data.assemble(idx, phase)
 
     def __call__(self, _host_batch=None, draws=None):
         return self.inner(self.batch(), draws)

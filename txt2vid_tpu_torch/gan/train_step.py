@@ -560,7 +560,10 @@ class ChunkStep:
     wrapped TrainStep on each of the k batches of a (k, B, ...) chunk in turn
     and returns each metric stacked (k,) in step order. Every other attribute
     is the wrapped step's. The steps are the ones k single calls make: each
-    draws from its own step counter."""
+    draws from its own step counter and, under a mesh, runs through
+    parallel.Mesh.run on this rank's rows of batch j, with the collectives
+    of one step and none for the chunk; each metric is already summed over
+    dp per step."""
 
     def __init__(self, step: TrainStep, k: int):
         self.inner, self.k = step, int(k)

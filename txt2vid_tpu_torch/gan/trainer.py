@@ -28,7 +28,10 @@ Across ranks (the step's `mesh`, trainer.py:231-240,286-290,501-506) every
 rank runs the same loop on the same summed metrics, so the NaN abort fires
 on all of them at one iteration; only rank 0 writes checkpoints (each save
 gathers an fsdp-sharded state on every rank first) and the metrics writer,
-and at a world size above 1 the in-loop sample dumps are off.
+and at a world size above 1 the in-loop sample dumps are off. With
+--steps_per_dispatch k the chunk-end actions fall at the same iterations
+on every rank, and each rank moves its own shards of the EMA (fsdp) once
+per chunk with decay**k.
 """
 
 import argparse

@@ -31,9 +31,13 @@ each dp rank feeds batch_size / dp items of a ShardedView (ranks of one dp
 index feed the same ones). Only rank 0 writes checkpoints and the metrics
 writer, and in-loop sample dumps are off at a world size above 1. The JAX
 CLI's refusals stay: --test, --device_data and --fsdp > 1 with --multihost
-exit with its messages. A world size that sp * fsdp does not divide raises,
---sp 2 on one process among them. Not yet across ranks: --device_data and
---steps_per_dispatch > 1 at a world size above 1 raise NotImplementedError.
+exit with its messages, and --test at a world size above 1 exits. A world
+size that sp * fsdp does not divide raises, --sp 2 on one process among
+them. --device_data across ranks uploads the whole dataset to every rank's
+card and each rank assembles its dp rows of the global batch's draw
+(data/device_cache.py); --steps_per_dispatch k across ranks stacks k of the
+rank's batches, its rows of global batches i to i + k - 1 (JAX's
+P(None, "dp")), and runs them as k steps, each with the collectives of one.
 
 The single-card levers, as the JAX CLI has them (train/gan.py:101-105,
 160-169, 253-340): --sgd trains both sides with optax.sgd's momentum SGD
@@ -107,17 +111,9 @@ def check_multihost_flags(args):
 
 
 def check_world_flags(args, world: int):
-    """What the port does not run across ranks yet, and --test's refusal."""
-    if world <= 1:
-        return
-    if args.test:
+    """--test's refusal at a world size above 1."""
+    if world > 1 and args.test:
         raise SystemExit("--test sampling is single-process; run it in one process")
-    if args.device_data:
-        raise NotImplementedError("--device_data at a world size above 1 is not in the "
-                                  "port yet")
-    if max(args.steps_per_dispatch, 1) > 1:
-        raise NotImplementedError("--steps_per_dispatch > 1 at a world size above 1 is "
-                                  "not in the port yet")
 
 
 def check_flags(args):
@@ -191,7 +187,9 @@ def first_frames(batches):
 class LoaderAdapter:
     """The trainer's dataset: the loader's batches (each clip's first frame
     under first_frame), stacked in chunks of k, copied to the device `depth`
-    items ahead."""
+    items ahead. Across ranks the loader reads the rank's ShardedView, so a
+    chunk holds its rows of k consecutive global batches (JAX's
+    P(None, "dp"))."""
 
     def __init__(self, loader, device, depth, first_frame=False, k=1):
         self.loader, self.device, self.depth = loader, device, depth
@@ -313,7 +311,7 @@ def _main(args, world):
     dset = create_object(args.data, vocab=vocab, anno=args.anno,
                          frame_size=args.frame_sizes[-1], num_channels=args.num_channels,
                          random_frames=args.random_frames, normalize=not args.uint8_input)
-    local_bs = args.batch_size
+    local_bs, full_dset = args.batch_size, dset
     if mesh is not None:
         if args.batch_size % mesh.dp:
             raise SystemExit(f"--batch_size {args.batch_size} must divide by the {mesh.dp} "
@@ -331,9 +329,10 @@ def _main(args, world):
                              "(txt2vid_tpu.data.packed.packed_dataset)")
         from txt2vid_tpu_torch.data.device_cache import DeviceVideoData
         status("Building the device-resident dataset (one upload)")
-        ddata = DeviceVideoData.from_dataset(dset, random_phase=bool(args.random_frames))
+        # the whole dataset on every rank's card, as JAX replicates it
+        ddata = DeviceVideoData.from_dataset(full_dset, random_phase=bool(args.random_frames))
         ddata.device_arrays(device)
-        status(f"device dataset: {ddata.num_pairs} pairs, {ddata.nbytes} bytes")
+        status(f"device dataset: {ddata.num_pairs} pairs, {ddata.nbytes} bytes per card")
 
     if args.G_loss is None:
         args.G_loss = args.D_loss
@@ -384,9 +383,10 @@ def _main(args, world):
         from txt2vid_tpu_torch.data.device_cache import DeviceDataStep, DeviceEpochIterator
         step = DeviceDataStep(step, ddata, args.batch_size, seed=seed)
         # the real-sample grids' host batches, each copied to the device once
+        # where the grids are drawn (one process)
         dataset = DeviceEpochIterator(
             ddata, args.batch_size, seed=seed,
-            put=lambda b: next(device_batches([b], device, 0)))
+            put=(lambda b: next(device_batches([b], device, 0))) if (world or 1) == 1 else None)
     else:
         dataset = LoaderAdapter(loader, device, args.prefetch, first_frame, k=k)
     if k > 1:
