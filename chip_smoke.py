@@ -3178,8 +3178,7 @@ def levers_profile(step, batch):
             step.step += 1
         with tempfile.TemporaryDirectory() as d:
             with profiling.trace(d) as prof:
-                with profiling.step_annotation("cond128", step.step):
-                    float(step(batch)["loss_d"])
+                float(step(batch)["loss_d"])
             check(len(list(Path(d).glob("*.pt.trace.json"))) == 1, "no trace written")
         kernels = sorted((e for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA

@@ -14,7 +14,7 @@ trees and utils/profiling, on the CPU.
   end2end_d_only), written by JAX's save_state, restored into the port and
   written back: the same bytes; a state the port made restores in JAX's
   restore_state with its template, equal arrays.
-- utils.profiling on the CPU: a Chrome trace with the annotated step, and no
+- utils.profiling on the CPU: a Chrome trace with a span, and no
   device memory statistics.
 """
 
@@ -319,17 +319,22 @@ def test_jax_restores_the_ports_optimizer_trees(kind, tmp_path):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """trace writes a Chrome trace holding the annotated step; without a card
-    there are no device memory statistics, as the JAX package reports it."""
+    """trace writes a Chrome trace holding a span and records it with its
+    step; without a card there are no device memory statistics, as the JAX
+    package reports it."""
     x = torch.randn(64, 64)
+    profiling.clear()
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.step_annotation("train", 3):
+        with profiling.span("trainer.step", step=3):
             (x @ x).sum()
     files = list(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "train#3" for e in events)
-    assert any(e.key == "train#3" for e in prof.key_averages())
+    assert any(e.get("name") == "trainer.step" for e in events)
+    assert any(e.key == "trainer.step" for e in prof.key_averages())
+    [record] = profiling.spans()
+    assert (record.name, record.step, record.device_ms) == ("trainer.step", 3, None)
+    profiling.clear()
     assert profiling.device_memory_stats() == {}
     assert profiling.format_memory_stats() == "no device memory stats"
 

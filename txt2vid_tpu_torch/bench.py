@@ -43,6 +43,7 @@ from txt2vid_tpu_torch.gan.cond_gan import CondGan
 from txt2vid_tpu_torch.gan.train_step import TrainConfig, adam, build_train_step
 from txt2vid_tpu_torch.models import tganv2_cond
 from txt2vid_tpu_torch.models.txt import Seq2Seq
+from txt2vid_tpu_torch.utils import profiling
 
 METRIC = "train_steps_per_sec_per_gpu_cond_tganv2_16f_64px"
 BATCH = 40
@@ -166,7 +167,9 @@ def measure(step, batch):
 
 def profile(step, batch, n: int, top: int = 12) -> dict:
     """Trace n steps (the last ended by a host fetch): device time per step
-    (the sum of the kernels' times), the device's busy share of the wall time,
+    (the sum of the kernels' times), the device's busy share of the wall time
+    (the length of the union of the kernels' intervals, so overlapping work
+    counts once),
     the `top` operators by the device time of the kernels they launch, the
     `top` kernels by their own device time and the `top` operators by their
     own host time (the profiler's, which inflates it)."""
@@ -186,6 +189,9 @@ def profile(step, batch, n: int, top: int = 12) -> dict:
     events = [e for e in prof.key_averages() if not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA)
+    busy_us = sum(b - a for a, b in profiling.union(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)))
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: e.self_device_time_total, reverse=True)[:top]
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
@@ -194,7 +200,7 @@ def profile(step, batch, n: int, top: int = 12) -> dict:
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
     return {"profile_steps": n, "wall_ms_per_step": 1e3 * wall / n,
             "device_ms_per_step": device_us / 1e3 / n,
-            "device_busy_share": device_us / 1e6 / wall,
+            "device_busy_share": busy_us / 1e6 / wall,
             "top_ops": [{"name": e.key, "calls_per_step": e.count / n,
                          "device_ms_per_step": e.self_device_time_total / 1e3 / n}
                         for e in ops],

@@ -74,6 +74,14 @@ step discards them.
 The step counter `step` sets the draws and the lazy-GP phase; a restored
 checkpoint sets it (convert.jax_state_to_torch).
 
+A step opens the spans of its phases (utils/profiling.py), each with the
+step id step + 1: `step.draw` (the draws, copied to the device),
+`step.encode` (the video as float, the caption encoding and the real
+pyramid), `step.g_forward` (the generator forward of the D phase's fakes),
+`step.d` (each D update: loss, penalty, backward; gp=True where it adds the
+penalty), `step.g` (the G phase) and, inside the last two, `step.optim`
+(each norm, clip and optimizer step).
+
 Across ranks (`mesh`, a parallel.Mesh; None: one device, the path above
 alone) the batch is this rank's slice of the global batch, the draws are
 the global batch's, and parallel.Mesh.run sets up the global semantics
@@ -93,6 +101,7 @@ import torch
 from txt2vid_tpu_torch.models.layers import frozen_batch_stats
 from txt2vid_tpu_torch.ops.optim import AdamStorage
 from txt2vid_tpu_torch.ops.subsample import multiscale_pyramid
+from txt2vid_tpu_torch.utils import profiling
 from txt2vid_tpu_torch.utils.misc import gen_perm_device
 
 
@@ -295,28 +304,29 @@ class TrainStep:
         with gp_lambda > 0, one (batch_size,) uniform per scale (every step,
         so the stream does not depend on the lazy-GP phase), then the
         generator's phases of each G sub-step after the first."""
-        gen = torch.Generator()
-        gen.manual_seed(int(np.random.SeedSequence([self.seed, self.step])
-                            .generate_state(1)[0]))
-        cfg = self.config
-        z = torch.randn(batch_size, cfg.latent_size, generator=gen)
-        n_pyr = len(cfg.frame_sizes) - 1 if cfg.subsample_input else 0
-        pyramid = [int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_pyr)]
-        n_gen = getattr(self.gan.gen, "num_blocks", 1) - 1
-        gen_phases = [int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_gen)]
-        d_steps = []
-        for _ in range(cfg.discrim_steps):
-            perms, alphas = [], [] if cfg.gp_lambda > 0 else None
-            for _ in self.gan.discrims:
-                perms.append(gen_perm_device(batch_size, generator=gen).to(device))
-                if alphas is not None:
-                    alphas.append([torch.rand(batch_size, generator=gen).to(device)
-                                   for _ in cfg.frame_sizes])
-            d_steps.append((perms, alphas))
-        later_gen = [[int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_gen)]
-                     for _ in range(cfg.gen_steps - 1)]
-        return Draws(z.to(device), pyramid, gen_phases, *d_steps[0],
-                     later_d_steps=d_steps[1:], later_gen_phases=later_gen)
+        with profiling.span("step.draw", step=self.step + 1):
+            gen = torch.Generator()
+            gen.manual_seed(int(np.random.SeedSequence([self.seed, self.step])
+                                .generate_state(1)[0]))
+            cfg = self.config
+            z = torch.randn(batch_size, cfg.latent_size, generator=gen)
+            n_pyr = len(cfg.frame_sizes) - 1 if cfg.subsample_input else 0
+            pyramid = [int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_pyr)]
+            n_gen = getattr(self.gan.gen, "num_blocks", 1) - 1
+            gen_phases = [int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_gen)]
+            d_steps = []
+            for _ in range(cfg.discrim_steps):
+                perms, alphas = [], [] if cfg.gp_lambda > 0 else None
+                for _ in self.gan.discrims:
+                    perms.append(gen_perm_device(batch_size, generator=gen).to(device))
+                    if alphas is not None:
+                        alphas.append([torch.rand(batch_size, generator=gen).to(device)
+                                       for _ in cfg.frame_sizes])
+                d_steps.append((perms, alphas))
+            later_gen = [[int(torch.randint(0, 2, (), generator=gen)) for _ in range(n_gen)]
+                         for _ in range(cfg.gen_steps - 1)]
+            return Draws(z.to(device), pyramid, gen_phases, *d_steps[0],
+                         later_d_steps=d_steps[1:], later_gen_phases=later_gen)
 
     def _scales(self, x, cond, phases):
         """The real pyramid and its conds (train_step.py:284-288)."""
@@ -350,42 +360,51 @@ class TrainStep:
         else:
             self.mesh.optimizer_step(opt)
 
+    def _update(self, params, opt, reduce=True):
+        """The pre-clip norm, the clip and the optimizer step of one update."""
+        with profiling.span("step.optim", step=self.step + 1):
+            norm = self._norm_and_clip(params, reduce)
+            self._opt_step(opt)
+        return norm
+
     def _d_step(self, d_params, real_scales, fakes, conds, perms, alphas):
-        """One D update; `conds()` gives the cond pyramid of each loss (under
-        end2end a fresh encoding). Returns (loss, pre-clip grad norm, zeroed
-        GP leaves or None)."""
+        """One D update, under the discriminators' copies and in the span
+        `step.d` (gp: whether it adds the penalty); `conds()` gives the cond
+        pyramid of each loss (under end2end a fresh encoding). Returns (loss,
+        pre-clip grad norm, zeroed GP leaves or None)."""
         cfg = self.config
         lazy = cfg.gp_lambda > 0 and cfg.gp_every > 1
         gp_on = cfg.gp_lambda > 0 and (not lazy or self.step % cfg.gp_every == 0)
         gp_scale = cfg.gp_lambda * (cfg.gp_every if lazy else 1)
-        quarantined = None
-        self.opt_d.zero_grad(set_to_none=True)
-        if gp_on and cfg.gp_quarantine:
-            loss = self._d_loss(real_scales, fakes, conds, perms, alphas, -1.0)
-            loss.backward()
-            loss_gp = self._d_loss(real_scales, fakes, conds, perms, alphas,
-                                   gp_scale, gp_only=True)
-            # a penalty that reaches no parameter (a discriminator that does
-            # not read x) has no graph: its gradient is zeros
-            g_gp = (torch.autograd.grad(loss_gp, d_params, allow_unused=True)
-                    if loss_gp.requires_grad else [None] * len(d_params))
-            g_gp = [torch.zeros_like(p) if g is None else g for p, g in zip(d_params, g_gp)]
-            self._reduce(_grads(d_params))
-            self._reduce(g_gp)
-            quarantined = quarantine_nonfinite_(g_gp)
-            ok = torch.isfinite(loss_gp if self.mesh is None else self.mesh.sum_(loss_gp))
-            quarantined = quarantined + (~ok).to(torch.int32)
-            loss = loss + torch.where(ok, loss_gp, torch.zeros_like(loss_gp))
-            torch._foreach_add_(_grads(d_params), g_gp)
-        else:
-            loss = self._d_loss(real_scales, fakes, conds, perms, alphas,
-                                gp_scale if gp_on else -1.0)
-            loss.backward()
-        norm = self._norm_and_clip(d_params, reduce=not (gp_on and cfg.gp_quarantine))
-        self._opt_step(self.opt_d)
-        if cfg.gp_quarantine and cfg.gp_lambda > 0 and quarantined is None:
-            quarantined = torch.zeros((), dtype=torch.int32, device=loss.device)
-        return loss.detach(), norm, quarantined
+        with profiling.span("step.d", step=self.step + 1, gp=gp_on), \
+                param_copy(self.gan.discrims, cfg.compute_dtype):
+            quarantined = None
+            self.opt_d.zero_grad(set_to_none=True)
+            if gp_on and cfg.gp_quarantine:
+                loss = self._d_loss(real_scales, fakes, conds, perms, alphas, -1.0)
+                loss.backward()
+                loss_gp = self._d_loss(real_scales, fakes, conds, perms, alphas,
+                                       gp_scale, gp_only=True)
+                # a penalty that reaches no parameter (a discriminator that does
+                # not read x) has no graph: its gradient is zeros
+                g_gp = (torch.autograd.grad(loss_gp, d_params, allow_unused=True)
+                        if loss_gp.requires_grad else [None] * len(d_params))
+                g_gp = [torch.zeros_like(p) if g is None else g for p, g in zip(d_params, g_gp)]
+                self._reduce(_grads(d_params))
+                self._reduce(g_gp)
+                quarantined = quarantine_nonfinite_(g_gp)
+                ok = torch.isfinite(loss_gp if self.mesh is None else self.mesh.sum_(loss_gp))
+                quarantined = quarantined + (~ok).to(torch.int32)
+                loss = loss + torch.where(ok, loss_gp, torch.zeros_like(loss_gp))
+                torch._foreach_add_(_grads(d_params), g_gp)
+            else:
+                loss = self._d_loss(real_scales, fakes, conds, perms, alphas,
+                                    gp_scale if gp_on else -1.0)
+                loss.backward()
+            norm = self._update(d_params, self.opt_d, reduce=not (gp_on and cfg.gp_quarantine))
+            if cfg.gp_quarantine and cfg.gp_lambda > 0 and quarantined is None:
+                quarantined = torch.zeros((), dtype=torch.int32, device=loss.device)
+            return loss.detach(), norm, quarantined
 
     def __call__(self, batch, draws: Draws | None = None):
         if self.mesh is not None:
@@ -397,11 +416,9 @@ class TrainStep:
     def run(self, batch, draws: Draws | None = None):
         """One step on `batch` with `draws` (drawn here when None)."""
         gan, cfg = self.gan, self.config
-        x = batch["video"]
-        if x.dtype == torch.uint8:
-            x = x.float() / 127.5 - 1.0
+        sid = self.step + 1
         if draws is None:
-            draws = self.draw(x.shape[0], x.device)
+            draws = self.draw(batch["video"].shape[0], batch["video"].device)
 
         has_cond = gan.cond_encoder is not None and batch.get("captions") is not None
         end2end = cfg.end2end and has_cond
@@ -409,13 +426,17 @@ class TrainStep:
         def encode():
             return gan.encode(batch["captions"], batch["lengths"])
 
-        cond = None
-        if has_cond:
-            if end2end:
-                gan.cond_encoder.train()
-            with torch.no_grad():
-                cond = encode()
-        real_scales, cond_scales = self._scales(x, cond, draws.pyramid_phases)
+        with profiling.span("step.encode", step=sid):
+            x = batch["video"]
+            if x.dtype == torch.uint8:
+                x = x.float() / 127.5 - 1.0
+            cond = None
+            if has_cond:
+                if end2end:
+                    gan.cond_encoder.train()
+                with torch.no_grad():
+                    cond = encode()
+            real_scales, cond_scales = self._scales(x, cond, draws.pyramid_phases)
 
         def live_conds():
             """The cond pyramid of a fresh encoding, with its gradient."""
@@ -429,15 +450,16 @@ class TrainStep:
         d_params = [p for d in gan.discrims for p in d.parameters()] + txt
         two_forward = cfg.gen_steps > 1 or end2end
         with param_copy([gan.gen], cdt):
-            if two_forward:
-                # the D phase's fakes: no gradient, BatchNorm statistics dropped
-                with torch.no_grad(), frozen_batch_stats():
-                    fakes = gan.generate(draws.z, cond=cond, train=True,
-                                         phases=draws.gen_phases)
-            else:
-                fakes_live = gan.generate(draws.z, cond=cond, train=True,
-                                          phases=draws.gen_phases)
-                fakes = [f.detach() for f in fakes_live]
+            with profiling.span("step.g_forward", step=sid):
+                if two_forward:
+                    # the D phase's fakes: no gradient, BatchNorm statistics dropped
+                    with torch.no_grad(), frozen_batch_stats():
+                        fakes = gan.generate(draws.z, cond=cond, train=True,
+                                             phases=draws.gen_phases)
+                else:
+                    fakes_live = gan.generate(draws.z, cond=cond, train=True,
+                                              phases=draws.gen_phases)
+                    fakes = [f.detach() for f in fakes_live]
             if [f.shape[2:4] for f in fakes] != [r.shape[2:4] for r in real_scales]:
                 raise ValueError(
                     f"generator pyramid {[tuple(f.shape[2:4]) for f in fakes]} does not "
@@ -451,20 +473,21 @@ class TrainStep:
             d_conds = live_conds if end2end else (lambda: cond_scales)
             loss_d = quarantined = None
             for j in range(cfg.discrim_steps):
-                with param_copy(gan.discrims, cdt):
-                    loss_j, grad_norm_d, q = self._d_step(
-                        d_params, real_scales, fakes, d_conds, *draws.d_step(j))
+                loss_j, grad_norm_d, q = self._d_step(
+                    d_params, real_scales, fakes, d_conds, *draws.d_step(j))
                 loss_d = loss_j if loss_d is None else loss_d + loss_j
                 if q is not None:
                     quarantined = q if quarantined is None else quarantined + q
 
             # G phase, through the updated D
             if not two_forward:
-                loss_g, grad_norm_g = self._shared_g_step(g_params, fakes_live,
-                                                          real_scales, cond_scales)
+                with profiling.span("step.g", step=sid):
+                    loss_g, grad_norm_g = self._shared_g_step(g_params, fakes_live,
+                                                              real_scales, cond_scales)
         if two_forward:
-            loss_g, grad_norm_g = self._g_steps(g_params, draws, real_scales, cond_scales,
-                                                live_conds if end2end else None)
+            with profiling.span("step.g", step=sid):
+                loss_g, grad_norm_g = self._g_steps(g_params, draws, real_scales, cond_scales,
+                                                    live_conds if end2end else None)
 
         self.step += 1
         metrics = {"loss_d": loss_d, "loss_g": loss_g,
@@ -497,8 +520,7 @@ class TrainStep:
             loss_g = self._gen_loss(leaves, real_preds, cond_scales)
             dfakes = torch.autograd.grad(loss_g, leaves)
             torch.autograd.backward(fakes_live, dfakes)
-        grad_norm_g = self._norm_and_clip(g_params)
-        self._opt_step(self.opt_g)
+        grad_norm_g = self._update(g_params, self.opt_g)
         return loss_g.detach(), grad_norm_g
 
     def _g_steps(self, g_params, draws, real_scales, cond_scales, live_conds):
@@ -540,8 +562,7 @@ class TrainStep:
                 grads = torch.autograd.grad(loss, g_params, allow_unused=True)
             for p, g in zip(g_params, grads):
                 p.grad = g
-            grad_norm_g = self._norm_and_clip(g_params)
-            self._opt_step(self.opt_g)
+            grad_norm_g = self._update(g_params, self.opt_g)
             loss_g = loss.detach() if loss_g is None else loss_g + loss.detach()
         return loss_g, grad_norm_g
 

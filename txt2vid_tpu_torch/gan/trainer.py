@@ -11,7 +11,14 @@ metric stacked (k,) in step order: the iteration advances by k, log, save
 and sample fire at the chunk's end when a period's boundary falls inside it
 (iteration % period < k; a save not before iteration `period`), the sample
 grids show the chunk's last batch, the EMA moves once per chunk with
-decay**k, and the per-iteration times are divided by k.
+decay**k, and the iterations of a log line count k per chunk.
+
+The status line's sec/iter is the wall time between two log lines, each
+taken after the drain that ends in a device fetch (the loop's start for the
+first), over the iterations between them; its batch load is the host time of
+the `trainer.data` spans (utils/profiling.py) over the same iterations. The
+loop opens the spans of its phases: `trainer.data`, `trainer.step` (step id
+the iteration) and `trainer.ema`.
 
 Metrics stay on the device until a log or save boundary and are then fetched
 in one transfer. The fetch checks them: a non-finite loss, a non-finite grad
@@ -36,7 +43,9 @@ per chunk with decay**k.
 
 import argparse
 import contextlib
+import itertools
 import struct
+import time
 import zlib
 from collections import deque
 
@@ -45,7 +54,7 @@ import torch
 
 from txt2vid_tpu_torch.convert import torch_state_to_jax
 from txt2vid_tpu_torch.gan.cond_gan import as_list
-from txt2vid_tpu_torch.utils import RollingAvg, Stopwatch, ensure_exists, status
+from txt2vid_tpu_torch.utils import RollingAvg, ensure_exists, profiling, status
 from txt2vid_tpu_torch.utils.checkpoint import AsyncCheckpointer, checkpoint_name
 
 
@@ -268,9 +277,6 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
     gnorm = {"d": RollingAvg(params.loss_window_size), "g": RollingAvg(params.loss_window_size)}
     nonfinite_gnorm = {"d": 0, "g": 0}
     gp_quarantined = [0]
-    avg_data_load = RollingAvg(params.log_period)
-    avg_iter = RollingAvg(params.log_period)
-    data_watch, iter_watch = Stopwatch(), Stopwatch()
     sample_gen = torch.Generator().manual_seed(seed)
     iteration = int(train_step.step)
 
@@ -382,22 +388,32 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
             s += " (%d non-finite!)" % bad
         return s
 
+    def data_s():
+        return profiling.totals().get("trainer.data", 0.0)
+
     rss_limit = getattr(params, "rss_limit_gb", 0) or 0
+    # (wall, iteration, trainer.data seconds) at the last log line
+    last_log = (time.perf_counter(), iteration, data_s())
     stop = False
+    end = object()
     for epoch in range(num_epoch):
         if stop:
             break
         if params.log_period > 0:
             status(f"Epoch {epoch + 1} started")
-        data_watch.start()
-        iter_watch.start()
-        for i, batch in enumerate(dataset):
-            avg_data_load.update(data_watch.stop() / k_step)
+        batches = iter(dataset)
+        for i in itertools.count():
+            with profiling.span("trainer.data", always=True):
+                batch = next(batches, end)
+            if batch is end:
+                break
             iteration += k_step
 
-            metrics = train_step(batch)
+            with profiling.span("trainer.step", step=iteration):
+                metrics = train_step(batch)
             if ema_update is not None:
-                ema_update(ema, gan.gen)
+                with profiling.span("trainer.ema", step=iteration):
+                    ema_update(ema, gan.gen)
             pending.append((iteration, metrics))
             if len(pending) >= 512:
                 drain_pending()
@@ -425,6 +441,9 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
 
             if params.log_period > 0 and iteration % params.log_period < k_step:
                 drain_pending()
+                now, data_now = time.perf_counter(), data_s()
+                t_log, it_log, data_log = last_log
+                last_log = (now, iteration, data_now)
                 gn = _gfmt("D", gnorm["d"], nonfinite_gnorm["d"]) + \
                     _gfmt("G", gnorm["g"], nonfinite_gnorm["g"])
                 if gp_quarantined[0]:
@@ -433,7 +452,8 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
                        "%.4f sec/iter; %.4f sec/batch load" % (
                            epoch, num_epoch, i, len(dataset), iteration,
                            discrim_loss.get(), gen_loss.get(), gn,
-                           avg_iter.get(), avg_data_load.get()))
+                           (now - t_log) / (iteration - it_log),
+                           (data_now - data_log) / (iteration - it_log)))
 
             if multihost and params.save_example_period > 0 and first:
                 status("multihost: in-loop sample dumps disabled (batches are "
@@ -448,10 +468,6 @@ def train(gan=None, train_step=None, num_epoch=None, dataset=None, params=None,
 
             if on_iteration is not None:
                 on_iteration(iteration, train_step)
-
-            data_watch.start()
-            avg_iter.update(iter_watch.stop() / k_step)
-            iter_watch.start()
 
     drain_pending()
     # final checkpoint: an epoch-bounded run resumes from its last iteration

@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from txt2vid_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "txt2vid_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,10 +76,12 @@ def build_all(names=None) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built first if needed."""
+    """The kernel's library, built first if needed, under the always span
+    `setup.kernels`."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        with profiling.span("setup.kernels", always=True):
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -87,7 +87,7 @@ from txt2vid_tpu_torch.gan.train_step import (ChunkStep, TrainConfig, adam, buil
                                               optimizer_params, sgd)
 from txt2vid_tpu_torch.ops.initializers import init_from_seed
 from txt2vid_tpu_torch.train.setup import add_multihost_args, maybe_init_distributed, setup
-from txt2vid_tpu_torch.utils import count_params, status, warn
+from txt2vid_tpu_torch.utils import count_params, profiling, status, warn
 from txt2vid_tpu_torch.utils.checkpoint import (latest_checkpoint, restore_state,
                                                 restore_txt_vars)
 
@@ -250,121 +250,124 @@ def _main(args, world):
         status(f"Loading vocab from {args.vocab}")
         vocab = load_pickle(args.vocab)
 
-    txt_encoder, cond_dim = None, 0
-    if not args.dont_use_sent and vocab is not None:
-        txt_encoder = create_object(args.sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
-                                    vocab_size=len(vocab), init_method=args.init_method)
-        cond_dim = txt_encoder.encoding_size
-        status(f"Sentence encode size = {cond_dim}")
-    else:
-        status("Not using sentence encoder")
+    with profiling.span("setup.models", always=True):
+        txt_encoder, cond_dim = None, 0
+        if not args.dont_use_sent and vocab is not None:
+            txt_encoder = create_object(args.sent or "txt2vid_tpu_torch.models.txt.Seq2Seq",
+                                        vocab_size=len(vocab), init_method=args.init_method)
+            cond_dim = txt_encoder.encoding_size
+            status(f"Sentence encode size = {cond_dim}")
+        else:
+            status("Not using sentence encoder")
 
-    model_kwargs = dict(init_method=args.init_method)
-    if args.bf16:
-        status("Using bfloat16 compute")
-        model_kwargs["dtype"] = torch.bfloat16
-    gen = create_object(args.G, cond_dim=cond_dim, **model_kwargs)
-    discrims = [create_object(d, cond_dim=cond_dim, **model_kwargs) for d in args.D]
-    sample_mapping = create_object(args.M, **model_kwargs) if args.M else None
-    for k, m in enumerate([gen, *discrims, txt_encoder, sample_mapping]):
-        if m is not None:
-            init_from_seed(m, _seed(seed, k)).to(device)
-    gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas,
-                  sample_mapping=sample_mapping, discrim_names=args.D_names)
+        model_kwargs = dict(init_method=args.init_method)
+        if args.bf16:
+            status("Using bfloat16 compute")
+            model_kwargs["dtype"] = torch.bfloat16
+        gen = create_object(args.G, cond_dim=cond_dim, **model_kwargs)
+        discrims = [create_object(d, cond_dim=cond_dim, **model_kwargs) for d in args.D]
+        sample_mapping = create_object(args.M, **model_kwargs) if args.M else None
+        for k, m in enumerate([gen, *discrims, txt_encoder, sample_mapping]):
+            if m is not None:
+                init_from_seed(m, _seed(seed, k)).to(device)
+        gan = CondGan(gen, txt_encoder, discrims=discrims, discrim_lambdas=args.D_lambdas,
+                      sample_mapping=sample_mapping, discrim_names=args.D_names)
 
-    config = TrainConfig(
-        frame_sizes=tuple(args.frame_sizes),
-        subsample_input=args.subsample_input,
-        discrim_steps=args.discrim_steps,
-        gen_steps=args.gen_steps,
-        gp_lambda=args.gp_lambda,
-        gp_every=args.gp_every,
-        gp_quarantine=args.gp_quarantine,
-        end2end=args.end2end or args.end2end_d_only,
-        end2end_txt_in_g=not args.end2end_d_only,
-        mean_discrim_loss=not args.no_mean_discrim_loss,
-        mean_gen_loss=not args.no_mean_gen_loss,
-        img_model=args.img_model,
-        latent_size=gen.latent_size,
-        shared_gen_fwd=args.shared_gen_fwd,
-        clip_grad=args.clip_grad or 0.0,
-        compute_dtype=torch.bfloat16 if args.bf16_params else None,
-    )
-    # end2end: the encoder's parameters follow G's and D's in their optimizers
-    g_params, d_params = optimizer_params(gan, config)
-    if args.sgd:
-        status("Using SGD")
-        opt_d = sgd(d_params, args.D_lr, args.D_beta1)
-        opt_g = sgd(g_params, args.G_lr, args.G_beta1)
-    else:
-        status("Using Adam")
-        # --bf16 stores the first moment in bf16, --bf16_nu the second; the
-        # update's arithmetic stays float32
-        storage = dict(mu_dtype=torch.bfloat16 if args.bf16 else None,
-                       nu_dtype=torch.bfloat16 if args.bf16_nu else None)
-        opt_d = adam(d_params, args.D_lr, args.D_beta1, args.D_beta2, **storage)
-        opt_g = adam(g_params, args.G_lr, args.G_beta1, args.G_beta2, **storage)
-    if args.clip_grad:
-        status(f"Clipping gradients to global norm {args.clip_grad}")
+        config = TrainConfig(
+            frame_sizes=tuple(args.frame_sizes),
+            subsample_input=args.subsample_input,
+            discrim_steps=args.discrim_steps,
+            gen_steps=args.gen_steps,
+            gp_lambda=args.gp_lambda,
+            gp_every=args.gp_every,
+            gp_quarantine=args.gp_quarantine,
+            end2end=args.end2end or args.end2end_d_only,
+            end2end_txt_in_g=not args.end2end_d_only,
+            mean_discrim_loss=not args.no_mean_discrim_loss,
+            mean_gen_loss=not args.no_mean_gen_loss,
+            img_model=args.img_model,
+            latent_size=gen.latent_size,
+            shared_gen_fwd=args.shared_gen_fwd,
+            clip_grad=args.clip_grad or 0.0,
+            compute_dtype=torch.bfloat16 if args.bf16_params else None,
+        )
+        # end2end: the encoder's parameters follow G's and D's in their optimizers
+        g_params, d_params = optimizer_params(gan, config)
+        if args.sgd:
+            status("Using SGD")
+            opt_d = sgd(d_params, args.D_lr, args.D_beta1)
+            opt_g = sgd(g_params, args.G_lr, args.G_beta1)
+        else:
+            status("Using Adam")
+            # --bf16 stores the first moment in bf16, --bf16_nu the second; the
+            # update's arithmetic stays float32
+            storage = dict(mu_dtype=torch.bfloat16 if args.bf16 else None,
+                           nu_dtype=torch.bfloat16 if args.bf16_nu else None)
+            opt_d = adam(d_params, args.D_lr, args.D_beta1, args.D_beta2, **storage)
+            opt_g = adam(g_params, args.G_lr, args.G_beta1, args.G_beta2, **storage)
+        if args.clip_grad:
+            status(f"Clipping gradients to global norm {args.clip_grad}")
 
-    status(f"Loading data from {args.data}")
-    dset = create_object(args.data, vocab=vocab, anno=args.anno,
-                         frame_size=args.frame_sizes[-1], num_channels=args.num_channels,
-                         random_frames=args.random_frames, normalize=not args.uint8_input)
-    local_bs, full_dset = args.batch_size, dset
-    if mesh is not None:
-        if args.batch_size % mesh.dp:
-            raise SystemExit(f"--batch_size {args.batch_size} must divide by the {mesh.dp} "
-                             "data-parallel ranks")
-        local_bs = args.batch_size // mesh.dp
-        dset = ShardedView(dset, mesh.dp_index, mesh.dp)
-        status(f"multihost data: process {mesh.rank} feeds {len(dset)} items, "
-               f"{local_bs}/{args.batch_size} of each global batch")
-    loader = get_loader(dset=dset, batch_size=local_bs, val=args.test,
-                        num_workers=args.workers, seed=seed)
-    ddata = None
-    if args.device_data and not args.test:
-        if not hasattr(dset, "reader"):
-            raise ValueError("--device_data needs a packed dataset "
-                             "(txt2vid_tpu.data.packed.packed_dataset)")
-        from txt2vid_tpu_torch.data.device_cache import DeviceVideoData
-        status("Building the device-resident dataset (one upload)")
-        # the whole dataset on every rank's card, as JAX replicates it
-        ddata = DeviceVideoData.from_dataset(full_dset, random_phase=bool(args.random_frames))
-        ddata.device_arrays(device)
-        status(f"device dataset: {ddata.num_pairs} pairs, {ddata.nbytes} bytes per card")
+    with profiling.span("setup.data", always=True):
+        status(f"Loading data from {args.data}")
+        dset = create_object(args.data, vocab=vocab, anno=args.anno,
+                             frame_size=args.frame_sizes[-1], num_channels=args.num_channels,
+                             random_frames=args.random_frames, normalize=not args.uint8_input)
+        local_bs, full_dset = args.batch_size, dset
+        if mesh is not None:
+            if args.batch_size % mesh.dp:
+                raise SystemExit(f"--batch_size {args.batch_size} must divide by the {mesh.dp} "
+                                 "data-parallel ranks")
+            local_bs = args.batch_size // mesh.dp
+            dset = ShardedView(dset, mesh.dp_index, mesh.dp)
+            status(f"multihost data: process {mesh.rank} feeds {len(dset)} items, "
+                   f"{local_bs}/{args.batch_size} of each global batch")
+        loader = get_loader(dset=dset, batch_size=local_bs, val=args.test,
+                            num_workers=args.workers, seed=seed)
+        ddata = None
+        if args.device_data and not args.test:
+            if not hasattr(dset, "reader"):
+                raise ValueError("--device_data needs a packed dataset "
+                                 "(txt2vid_tpu.data.packed.packed_dataset)")
+            from txt2vid_tpu_torch.data.device_cache import DeviceVideoData
+            status("Building the device-resident dataset (one upload)")
+            # the whole dataset on every rank's card, as JAX replicates it
+            ddata = DeviceVideoData.from_dataset(full_dset, random_phase=bool(args.random_frames))
+            ddata.device_arrays(device)
+            status(f"device dataset: {ddata.num_pairs} pairs, {ddata.nbytes} bytes per card")
 
     if args.G_loss is None:
         args.G_loss = args.D_loss
     losses = MixedGanLoss(g_loss=create_object(args.G_loss), d_loss=create_object(args.D_loss))
     step = build_train_step(gan, losses, opt_g, opt_d, config, seed=seed, mesh=mesh)
 
-    if args.resume and not args.weights:
-        args.weights = latest_checkpoint(args.out)
+    with profiling.span("setup.models", always=True):
+        if args.resume and not args.weights:
+            args.weights = latest_checkpoint(args.out)
+            if args.weights:
+                status(f"Auto-resuming from {args.weights}")
         if args.weights:
-            status(f"Auto-resuming from {args.weights}")
-    if args.weights:
-        status(f"Loading weights from {args.weights}")
-        jax_state_to_torch(restore_state(torch_state_to_jax(step), args.weights), step)
+            status(f"Loading weights from {args.weights}")
+            jax_state_to_torch(restore_state(torch_state_to_jax(step), args.weights), step)
 
-    ema = None
-    if args.g_ema and args.weights:
-        from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
-        ema = load_ema(args.weights, init_ema(gen), gen)
-        if ema is not None:
-            status(f"Restored generator EMA from {args.weights}.ema")
+        ema = None
+        if args.g_ema and args.weights:
+            from txt2vid_tpu_torch.gan.ema import init_ema, load_ema
+            ema = load_ema(args.weights, init_ema(gen), gen)
+            if ema is not None:
+                status(f"Restored generator EMA from {args.weights}.ema")
 
-    if args.sent_weights:
-        status(f"Loading pre-trained sentence model from {args.sent_weights}")
-        with torch.no_grad():
-            load_encoder_vars(txt_encoder, restore_txt_vars(args.sent_weights))
+        if args.sent_weights:
+            status(f"Loading pre-trained sentence model from {args.sent_weights}")
+            with torch.no_grad():
+                load_encoder_vars(txt_encoder, restore_txt_vars(args.sent_weights))
 
-    if mesh is not None and mesh.fsdp > 1 and not args.test:
-        # the state (and the EMA) at rest as this rank's shards, from here on
-        if args.g_ema and ema is None:
-            from txt2vid_tpu_torch.gan.ema import init_ema
-            ema = init_ema(gen)
-        mesh.shard_state(step, ema)
+        if mesh is not None and mesh.fsdp > 1 and not args.test:
+            # the state (and the EMA) at rest as this rank's shards, from here on
+            if args.g_ema and ema is None:
+                from txt2vid_tpu_torch.gan.ema import init_ema
+                ema = init_ema(gen)
+            mesh.shard_state(step, ema)
 
     n_params = sum(count_params(m) for m in [gen, *discrims, txt_encoder] if m is not None)
     status("GAN has %d parameters (~%.2f * 10^8)" % (n_params, n_params / 1e8))
