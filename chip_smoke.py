@@ -36,6 +36,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    record keeps the serving
    shape and the serve phase's launches; its training shape is nested under
    "train_shape". K2 and K3 records hold the training shape.
+   Then (phase conv) the 3x3 convolution kernels (ops/conv.py: forward,
+   input gradient, weight gradient) against float64 versions of F.conv2d
+   and torch.nn.grad's gradients at the cond-128 generator's shapes
+   (conv.COND128_SHAPES), within CONV_TOL of the scale, which cuDNN's TF32
+   must break at every shape; and their times beside the float32 library
+   calls' (cuDNN, TF32 off: "library_ms") with the bounds at 67 TFLOP/s
+   (SIMT float32) and 165 TFLOP/s (three TF32 passes). Their record on the
+   kernels line ("name" "conv3x3") holds the times and phase cond128's
+   launches of each op.
 4. serve: the caption->video service (txt2vid_tpu_torch.serve) at the width of
    the flagship conditional model, weights random from --seed and every
    attention gamma set to 1, answering 20 captions of mixed length in chunks of
@@ -85,12 +94,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    pack_directory, the vocabulary from `python -m txt2vid_tpu_torch.data`)
    read through the native frame-cache reader. No --sent_weights: the encoder
    starts from the seed. Every step launches K1 14 and K2, K3 10 times (K1
-   once more for the recomputed up0), with finite losses; the attention
+   once more for the recomputed up0), and the 3x3 convolution kernels what
+   cond128_conv_launches gives, with finite losses; the attention
    shapes (B, N, M, d, dv) of a step are the generator's (256, 4096, 1024, 8,
    32) and the discriminator's three scales. Then one step with the kernels
    against no_kernel() (as in cli),
    the peak memory and launches of a GP and a plain step with remat in G, off,
-   and in G and D, 6 steps timed alone, and the last checkpoint served by
+   and in G and D, 6 steps timed alone, a step's own inputs of the 3x3
+   convolutions through the kernels against float64 (the forward's and input
+   gradient's mean error toward zero within CONV_DRIFT of the mean
+   magnitude, the weight gradient's printed beside cuDNN float32's; every
+   max error within CONV_TOL), and
+   the last checkpoint served by
    `txt2vid_tpu_torch.serve.main`, live and with --ema: K1 once per chunk of
    8 at (256, 4096, 1024, 8, 32), the videos within 1e-4 (uint8 within 1) of
    the same service under no_kernel().
@@ -280,6 +295,7 @@ from txt2vid_tpu_torch.models.layers import Attention, Attention3d
 from txt2vid_tpu_torch.models.txt import Seq2Seq
 from txt2vid_tpu_torch.ops import _build
 from txt2vid_tpu_torch.ops import attention as attention_mod
+from txt2vid_tpu_torch.ops import conv as conv_mod
 from txt2vid_tpu_torch.ops import subsample_rect
 from txt2vid_tpu_torch.ops.attention import no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
@@ -388,6 +404,28 @@ TENSOR_CORE_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
 PAIR_MACS = {"attention_fwd": lambda d, dv: d + dv,
              "attention_bwd_dq": lambda d, dv: 2 * d + dv,
              "attention_bwd_dkv": lambda d, dv: 2 * d + 2 * dv}
+
+
+# the 3x3 convolution ops (ops/conv.py) and the fixed-order sum of their
+# split reductions, by the names their launches go under
+CONV_OPS = {"forward": conv_mod.conv3x3, "input_grad": conv_mod.conv3x3_input_grad,
+            "weight_grad": conv_mod.conv3x3_weight_grad, "reduce": conv_mod.conv3x3_reduce}
+# calls of (forward, input gradient, weight gradient) a cond-128 training
+# step makes at each of conv.COND128_SHAPES: the ConvLSTM's gate convolution
+# wx0 once and wh0 at each of 32 frames (wh0's zero state at frame 0 takes no
+# input gradient); each UpBlock convolution's forward twice (remat)
+COND128_CONV_CALLS = [(33, 32, 33)] + [(2, 1, 1)] * 10
+# max|kernel - float64| of max(1, max|float64|), all three ops: the kernels
+# read at most 2.6e-6 (the weight gradient; forward and input gradient 3e-7),
+# cuDNN's TF32 3.3e-4 or more at these shapes
+CONV_TOL = 3e-5
+# the mean error toward zero against float64 over the mean magnitude: the
+# tensor cores' truncation, uncorrected, left 3.7e-8 to 7.0e-8. A drift in
+# the forward or the input gradient moves every later activation; one in a
+# weight gradient only scales what Adam divides by its own scale, so a real
+# step's weight gradients (heavy-tailed: their drift read -1.6e-8 to 4.4e-8
+# corrected, 4e-8 to 6e-8 not, cuDNN's -5.6e-7 to 3.8e-7) are read, not held
+CONV_DRIFT = 2.5e-8
 
 
 def fail(msg):
@@ -517,6 +555,8 @@ def zero_counts():
     for k in KERNELS.values():
         k.launches = 0
         k.dtype_launches = dict.fromkeys(k.dtype_launches, 0)
+    for op in CONV_OPS.values():
+        op.launches = 0
 
 
 def counts(dtype=None):
@@ -663,6 +703,146 @@ def time_forward(shape, seed, dtype=torch.float32):
             "library_ms": library_ms, "library_graph_ms": library_device_ms,
             "resident_warps_per_sm": occ["resident_warps_per_sm"],
             "shape": list(shape), "dtype": str(dtype)[6:]}
+
+
+def conv_ops(x, w, b, dy):
+    """op -> (the kernel's call, the plain version's) at these inputs."""
+    return {"forward": (lambda: conv_mod.conv3x3(x, w, b),
+                        lambda: conv_mod.conv3x3_reference(x, w, b)),
+            "input_grad": (lambda: conv_mod.conv3x3_input_grad(dy, w),
+                           lambda: conv_mod.conv3x3_input_grad_reference(dy, w)),
+            "weight_grad": (lambda: conv_mod.conv3x3_weight_grad(x, dy),
+                            lambda: conv_mod.conv3x3_weight_grad_reference(x, dy))}
+
+
+def f64_err(ref, got):
+    """(max|got - ref|, max(1, max|ref|), the mean error toward zero over the
+    mean |ref|) of a result against its float64 version."""
+    diff = ref - got.double()
+    return (float(diff.abs().max()), max(1.0, float(ref.abs().max())),
+            float((diff * ref.sign()).mean() / ref.abs().mean()))
+
+
+def phase_conv(seed):
+    """The 3x3 convolution kernels against float64 at conv.COND128_SHAPES,
+    with cuDNN's float32 and TF32 (the control) beside them, and their times
+    beside cuDNN's float32 calls (TF32 off). Returns the kernels line's
+    record."""
+    rows = []
+    for shape in conv_mod.COND128_SHAPES:
+        n, cin, cout, h, w = shape
+        gen = torch.Generator(device="cuda").manual_seed(seed + sum(shape))
+        x = torch.randn(n, cin, h, w, device="cuda", generator=gen)
+        wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (9 * cin) ** 0.5
+        b = torch.randn(cout, device="cuda", generator=gen)
+        dy = torch.randn(n, cout, h, w, device="cuda", generator=gen)
+        ref_ops = conv_ops(x.double(), wt.double(), b.double(), dy.double())
+        flops = 2 * n * h * w * cout * cin * 9
+        for op, (kernel, plain) in conv_ops(x, wt, b, dy).items():
+            ref = ref_ops[op][1]()
+            err, scale, drift = f64_err(ref, kernel())
+            library_err = f64_err(ref, plain())[0]
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                tf32_err = f64_err(ref, plain())[0]
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+            del ref
+            limit = CONV_TOL * scale
+            ms, library_ms = cuda_ms(kernel, reps=10), cuda_ms(plain, reps=10)
+            # on the card the plain versions are the library's calls
+            row = {"shape": list(shape), "op": op, "ms": ms, "library_ms": library_ms,
+                   "max_abs_err": err, "library_max_abs_err": library_err,
+                   "tf32_max_abs_err": tf32_err, "scale": scale, "drift": drift,
+                   "bound_ms": 1e3 * flops / PEAK_F32_FLOP_PER_S,
+                   "tc_bound_ms": 1e3 * 3 * flops / PEAK_TF32_FLOP_PER_S,
+                   "tflop_per_s": flops / ms / 1e9}
+            print(f"phase conv: {op} {shape}: kernel {ms:.4f} ms ({row['tflop_per_s']:.1f} "
+                  f"TFLOP/s), cuDNN float32 {library_ms:.4f} ms, bound {row['bound_ms']:.4f} "
+                  f"ms at 67 TFLOP/s, {row['tc_bound_ms']:.4f} ms at 165; max|diff| from "
+                  f"float64 of scale: kernel {err / scale:.3g}, cuDNN float32 "
+                  f"{library_err / scale:.3g}, TF32 {tf32_err / scale:.3g} (limit "
+                  f"{CONV_TOL:.3g}); kernel's mean error toward zero {drift:.3g}")
+            check(err <= limit, f"conv3x3 {op} strays from float64 at {shape}")
+            check(tf32_err > limit, f"the TF32 control passes conv3x3 {op}'s limit at {shape}")
+            rows.append(row)
+        del x, wt, b, dy, ref_ops
+        torch.cuda.empty_cache()
+    return {"name": "conv3x3", "route": "cuda", "source": "txt2vid_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "cuDNN's float32 convolutions (no TPU kernel)", "launches": None,
+            "shapes": rows}
+
+
+def conv_counts():
+    """Each 3x3 convolution op's launches so far (CONV_OPS)."""
+    return {name: op.launches for name, op in CONV_OPS.items()}
+
+
+def cond128_conv_launches():
+    """Each 3x3 convolution op's launches per cond-128 training step: its
+    calls (COND128_CONV_CALLS) at each shape, and a fixed-order sum after
+    each call whose plan splits its reduction (on this card's SMs)."""
+    sms = sm_count(0)
+    out = dict.fromkeys(CONV_OPS, 0)
+    for (n, cin, cout, h, w), calls in zip(conv_mod.COND128_SHAPES, COND128_CONV_CALLS):
+        plans = (conv_mod.conv_plan(n, cin, cout, h, w, False, sms),
+                 conv_mod.conv_plan(n, cout, cin, h, w, True, sms),
+                 conv_mod.wgrad_plan(n, cin, cout, h, w, sms))
+        for op, k, plan in zip(("forward", "input_grad", "weight_grad"), calls, plans):
+            out[op] += k
+            out["reduce"] += k * (plan.splits > 1)
+    return out
+
+
+def cond128_conv_drift(step, batch):
+    """One cond-128 step's own inputs of the 3x3 convolution ops (the first
+    call of each op at each shape) through the kernels, against float64 and
+    beside cuDNN's float32: the forward's and input gradient's mean error
+    toward zero within CONV_DRIFT of the mean magnitude, every op's largest
+    within CONV_TOL of the scale. Returns the readings."""
+    seen, originals = {}, {op: getattr(conv_mod, fn.__name__) for op, fn in CONV_OPS.items()
+                           if op != "reduce"}
+
+    def recording(op, fn):
+        def call(*args):
+            key = (op, tuple(args[0].shape), tuple(args[1].shape))
+            if key not in seen:
+                seen[key] = [a.detach().clone() if torch.is_tensor(a) else a for a in args]
+            return fn(*args)
+        # the op counts its launches on whatever its module name holds
+        call.__name__, call.launches = fn.__name__, fn.launches
+        return call
+
+    for op, fn in originals.items():
+        setattr(conv_mod, fn.__name__, recording(op, fn))
+    try:
+        step(batch)
+        torch.cuda.synchronize()
+    finally:
+        for fn in originals.values():
+            fn.launches = getattr(conv_mod, fn.__name__).launches
+            setattr(conv_mod, fn.__name__, fn)
+    check({op for op, *_ in seen} == set(originals), f"a step called only {sorted(seen)}")
+    rows = []
+    for (op, *shapes), args in seen.items():
+        ref = getattr(conv_mod, f"{originals[op].__name__}_reference")(
+            *[a.double() if torch.is_tensor(a) else a for a in args])
+        err, scale, drift = f64_err(ref, originals[op](*args))
+        library_err, _, library_drift = f64_err(
+            ref, getattr(conv_mod, f"{originals[op].__name__}_reference")(*args))
+        del ref
+        print(f"phase cond128: a step's {op} at {shapes[0]} x {shapes[1]}: mean error toward "
+              f"zero of the mean magnitude, kernel {drift:.3g}, cuDNN float32 "
+              f"{library_drift:.3g}; max|diff| of scale, kernel {err / scale:.3g}, cuDNN "
+              f"float32 {library_err / scale:.3g}")
+        check(op == "weight_grad" or abs(drift) <= CONV_DRIFT,
+              f"conv3x3 {op} drifts {drift:.3g} at {shapes}")
+        check(err <= CONV_TOL * scale, f"conv3x3 {op} strays from float64 at {shapes}")
+        rows.append({"op": op, "shapes": shapes, "drift": drift, "library_drift": library_drift,
+                     "max_abs_err": err, "library_max_abs_err": library_err, "scale": scale})
+    del seen
+    torch.cuda.empty_cache()
+    return rows
 
 
 def bwd_inputs(shape, dtype, seed):
@@ -1177,7 +1357,7 @@ class StepRecorder:
             gp = step.config.gp_lambda > 0 and it % step.config.gp_every == 0
             state = StateSnapshot(step) if rec.snapshot and rec.bad is None else None
             torch.cuda.synchronize()
-            before = counts()
+            before, conv_before = counts(), conv_counts()
             coll = sys.modules.get("txt2vid_tpu_torch.parallel.collectives")
             before_coll = dict(coll.COUNTS) if coll else {}
             t0 = time.perf_counter()
@@ -1187,11 +1367,13 @@ class StepRecorder:
                 rec.bad = (it, state, batch)
             ms = 1e3 * (time.perf_counter() - t0)
             launched = {k: v - before[k] for k, v in counts().items()}
+            conv_launched = {k: v - conv_before[k] for k, v in conv_counts().items()}
             collectives = {f"{b}/{op}": n - before_coll.get((b, op), 0)
                            for (b, op), n in (coll.COUNTS.items() if coll else ())
                            if n != before_coll.get((b, op), 0)}
             rec.steps.append({"iteration": it, "gp": gp, "ms": ms, "metrics": metrics,
-                              "launches": launched, "collectives": collectives})
+                              "launches": launched, "conv_launches": conv_launched,
+                              "collectives": collectives})
             rec.step, rec.batch = step, batch
             return out
 
@@ -1584,6 +1766,7 @@ def _phase_cond128(root, seed):
         readers.append(self)
 
     want = train_launches(COND128_SCALES, remat_g=True)
+    want_conv = cond128_conv_launches()
     packed.PackedReader.__init__ = recording_init
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1608,11 +1791,14 @@ def _phase_cond128(root, seed):
           f"{len(rec.steps)} steps run, {COND128_STEPS} expected")
     for r in rec.steps:
         print(f"phase cond128: step {r['iteration']} ({'GP' if r['gp'] else 'plain'}): "
-              f"{r['ms']:.2f} ms, {r['metrics']}, launches {r['launches']}")
+              f"{r['ms']:.2f} ms, {r['metrics']}, launches {r['launches']}, 3x3 "
+              f"convolutions {r['conv_launches']}")
         check(all(math.isfinite(v) for v in r["metrics"].values()),
               f"cond128 step {r['iteration']}: non-finite {r['metrics']}")
         check(r["launches"] == want, f"cond128 step {r['iteration']}: launches "
               f"{r['launches']}, expected {want} (remat in G)")
+        check(r["conv_launches"] == want_conv, f"cond128 step {r['iteration']}: 3x3 "
+              f"convolution launches {r['conv_launches']}, expected {want_conv}")
     check([r["gp"] for r in rec.steps]
           == [i % COND128_GP_EVERY == 0 for i in range(COND128_STEPS)],
           "the GP did not run on the steps gp_every gives")
@@ -1633,11 +1819,15 @@ def _phase_cond128(root, seed):
           f"{sum(p.numel() for p in disc.parameters())} parameters")
     check(sampled == 2, f"the sampling launched K1 {sampled} times, 2 expected")
 
+    conv_totals = {k: sum(r["conv_launches"][k] for r in rec.steps) for k in want_conv}
+
     compare_kernel_and_plain_cli_step(step, batch, phase="cond128")
     cond128_memory(step, batch)
     step_ms = time_cli_steps(step, batch, n=6, phase="cond128")
+    conv_drift = cond128_conv_drift(step, batch)
     serve = cond128_serve(root, latest, seed)
-    return {"launches": totals, "per_step": want, "serve_launches": serve, "step_ms": step_ms}
+    return {"launches": totals, "per_step": want, "serve_launches": serve, "step_ms": step_ms,
+            "conv_launches": conv_totals, "conv_per_step": want_conv, "conv_drift": conv_drift}
 
 
 def cond128_memory(step, batch):
@@ -4049,6 +4239,7 @@ def main():
 
     records, bf16_records = timed("kernels", kernel_records)
     timed("float64", phase_float64, args.seed, base)
+    conv_record = timed("conv", phase_conv, args.seed)
     if base is not None:
         timed("compare", phase_compare, base, args.seed)
     serve_launches, serve_ms = timed("serve", phase_serve, args.seed)
@@ -4115,8 +4306,15 @@ def main():
         r["parallel_dispatch_launches"] = parallel["dispatch"]["launches"][r["name"]]
     check(all(r["launches"] for r in records + bf16_records),
           "a kernel was not launched on its main path")
+    # the 3x3 convolution kernels' launches in phase cond128's steps (each
+    # step checked against cond128_conv_launches), and its step's drift
+    conv_record["launches"] = cond["conv_launches"]
+    conv_record["launches_per_step"] = cond["conv_per_step"]
+    conv_record["cond128_step_drift"] = cond["conv_drift"]
+    check(all(conv_record["launches"].values()),
+          f"a convolution kernel was not launched: {conv_record['launches']}")
     print(smi)
-    print(json.dumps({"kernels": records + bf16_records}))
+    print(json.dumps({"kernels": records + bf16_records + [conv_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

@@ -16,6 +16,7 @@ each gradient float32 holds.
 import pytest
 import torch
 
+from txt2vid_tpu_torch.ops import conv
 from txt2vid_tpu_torch.ops.attention import attention_core_auto, no_kernel
 from txt2vid_tpu_torch.ops.fused_attention import (
     attention_bwd_dkv, attention_bwd_dkv_reference, attention_bwd_dq,
@@ -391,3 +392,131 @@ def test_device_data_step_assembles_its_dp_rows_on_the_card():
     assert launched == [k.launches - b for k, b in zip(kernels, before)]
     assert all(n > 0 for n in launched)
     assert all(torch.isfinite(v).all() for v in metrics.values())
+
+
+def _conv_rel_err(got, ref):
+    """The largest error against float64 over the largest |ref|."""
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def _conv_drift(got, ref):
+    """The mean error toward zero against float64 over the mean |ref|."""
+    return float(((ref - got.double()) * ref.sign()).mean() / ref.abs().mean())
+
+
+def _conv_ops(x, w, b, dy):
+    return {"forward": (lambda: conv.conv3x3(x, w, b),
+                        lambda: conv.conv3x3_reference(x, w, b)),
+            "input_grad": (lambda: conv.conv3x3_input_grad(dy, w),
+                           lambda: conv.conv3x3_input_grad_reference(dy, w)),
+            "weight_grad": (lambda: conv.conv3x3_weight_grad(x, dy),
+                            lambda: conv.conv3x3_weight_grad_reference(x, dy))}
+
+
+@pytest.mark.parametrize("shape", conv.COND128_SHAPES)
+def test_conv_kernels_hold_float32_accuracy_at_the_cell_shapes(shape):
+    """Forward, input gradient and weight gradient against a float64
+    convolution at the cond-128 generator's shapes: the kernels' largest
+    relative error at most 1.5x cuDNN's float32 (TF32 off) and at least 10x
+    under cuDNN's TF32; two runs bit for bit; the mean error toward zero
+    within 2.5e-8 of the mean magnitude in all three (uncorrected, the
+    tensor cores' truncation left 6.3e-8 to 7.0e-8 in the forward and input
+    gradient and 3.7e-8 in the weight gradient)."""
+    n, cin, cout, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn(n, cin, h, w, device="cuda", generator=gen)
+    wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (9 * cin) ** 0.5
+    b = torch.randn(cout, device="cuda", generator=gen)
+    dy = torch.randn(n, cout, h, w, device="cuda", generator=gen)
+    ops = _conv_ops(x, wt, b, dy)
+    refs = {k: plain() for k, (_, plain) in
+            _conv_ops(x.double(), wt.double(), b.double(), dy.double()).items()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        for name, (kernel, plain) in ops.items():
+            got = kernel()
+            assert torch.equal(got, kernel()), f"{name} does not repeat bit for bit"
+            torch.backends.cudnn.allow_tf32 = False
+            f32 = _conv_rel_err(plain(), refs[name])
+            torch.backends.cudnn.allow_tf32 = True
+            tf = _conv_rel_err(plain(), refs[name])
+            err = _conv_rel_err(got, refs[name])
+            print(f"conv {shape} {name}: kernel {err:.3g}, cuDNN float32 {f32:.3g}, "
+                  f"TF32 {tf:.3g}")
+            assert err <= 1.5 * f32, (name, err, f32)
+            assert err * 10 <= tf, (name, err, tf)
+            drift = _conv_drift(got, refs[name])
+            print(f"conv {shape} {name}: mean error toward zero {drift:.3g}")
+            assert abs(drift) <= 2.5e-8, (name, drift)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24, 6, 7), (3, 12, 40, 5, 7), (1, 9, 70, 2, 2),
+                                   (2, 4, 130, 6, 33)])
+def test_conv_double_backward_matches_the_plain_path(shape):
+    """The gradient penalty's pattern through the ops (each backward calls the
+    other two) and through F.conv2d, both float32 on the card with TF32 off,
+    against the same in float64: each gradient within 5e-5 of its scale on
+    both paths (at these K of 36-144 both paths measured 1.2e-6 to 1.1e-5,
+    the ops up to 2.3x the plain path's), and the two paths within 5e-5."""
+    n, cin, cout, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    leaves = [torch.randn(s, device="cuda", generator=gen)
+              for s in ((n, cin, h, w), (cout, cin, 3, 3), (cout,))]
+
+    def penalty(fn, dtype=torch.float32):
+        x, wt, b = (t.to(dtype).requires_grad_(True) for t in leaves)
+        y = fn(x, wt, b)
+        gx, = torch.autograd.grad((y.tanh() ** 2).sum(), x, create_graph=True)
+        return torch.autograd.grad((gx ** 2).sum(), (x, wt, b))
+
+    plain_conv = lambda x, wt, b: torch.nn.functional.conv2d(x, wt, b, padding=1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = conv.conv3x3.launches
+        got = penalty(conv.Conv3x3.apply)
+        assert conv.conv3x3.launches > before
+        plain = penalty(plain_conv)
+        ref = penalty(plain_conv, torch.float64)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for g, p, r in zip(got, plain, ref):
+        scale = float(r.abs().max())
+        err_g, err_p = (float((v.double() - r).abs().max()) for v in (g, p))
+        print(f"double backward {shape}: ops {err_g / scale:.3g}, plain {err_p / scale:.3g}")
+        assert err_g <= 5e-5 * scale and err_p <= 5e-5 * scale
+        assert float((g - p).abs().max()) <= 5e-5 * scale
+
+
+def test_conv2d_routes_to_the_kernels_on_the_card():
+    """A float32 3x3 Conv2d on CUDA launches the convolution kernels in its
+    forward and both gradients, and the fixed-order sum once for each of
+    them whose plan splits its reduction; under no_kernel() none; a bf16 one
+    and a C_out = 1 one none."""
+    from txt2vid_tpu_torch.models import layers
+    from txt2vid_tpu_torch.ops.fused_attention import sm_count
+    counters = (conv.conv3x3, conv.conv3x3_input_grad, conv.conv3x3_weight_grad,
+                conv.conv3x3_reduce)
+
+    def launches(m, x):
+        before = [c.launches for c in counters]
+        y = m(x)
+        y.float().sum().backward()
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    torch.manual_seed(0)
+    x = torch.randn(2, 8, 6, 6, device="cuda", requires_grad=True)
+    m = layers.Conv2d(8, 16, 3, padding=1).cuda()
+    sms = sm_count(0)
+    splits = sum(p.splits > 1 for p in (conv.conv_plan(2, 8, 16, 6, 6, False, sms),
+                                        conv.conv_plan(2, 16, 8, 6, 6, True, sms),
+                                        conv.wgrad_plan(2, 8, 16, 6, 6, sms)))
+    assert splits > 0
+    assert launches(m, x) == [1, 1, 1, splits]
+    with no_kernel():
+        assert launches(m, x) == [0, 0, 0, 0]
+    bf16 = layers.Conv2d(8, 16, 3, padding=1, compute_dtype=torch.bfloat16).cuda()
+    assert launches(bf16, x) == [0, 0, 0, 0]
+    assert launches(layers.RenderBlock(8, 1).cuda(), x) == [0, 0, 0, 0]

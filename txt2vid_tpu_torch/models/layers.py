@@ -13,6 +13,11 @@ promoted to their common type, so a bf16 weight copy under a float32 input
 computes in float32 (`promote`, flax's promote_dtype). BatchNorm takes its
 statistics and normalises in float32 and returns `dtype`.
 
+A float32 3x3 Conv2d (stride 1, padding 1, no dilation or groups, at least
+8 output channels) on a CUDA tensor runs on the tensor-core convolution
+kernels (ops/conv.py), its gradients too; `takes_conv_kernel` is the rule,
+and ops.attention.no_kernel() sends it back to F.conv2d.
+
 The TCWYT, TGAN and image-GAN families (models/tcwyt.py, tgan.py, img.py)
 add flax's transposed convolution (`ConvTranspose1d/2d/3d`), convolutions
 padded as flax's SAME pads (`SameConv2d/3d`, `same_pad`), BatchNorm over
@@ -29,7 +34,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from txt2vid_tpu_torch.ops import batch_group
-from txt2vid_tpu_torch.ops.attention import attention_core_auto
+from txt2vid_tpu_torch.ops.attention import attention_core_auto, kernels_disabled
+from txt2vid_tpu_torch.ops.conv import Conv3x3
 from txt2vid_tpu_torch.ops.initializers import RESIDUAL_GAIN, kernel_init_
 from txt2vid_tpu_torch.ops.pooling import (avg_pool_3d_shape_aware, max_pool_2d,
                                            max_pool_3d, upsample_nearest_2d)
@@ -126,8 +132,26 @@ class _Casting:
         return self._apply_cast(x, weight, bias)
 
 
+# the least output channels a Conv2d takes the convolution kernels with: the
+# render blocks' C_out = 1 (and 3) convolutions stay on F.conv2d
+CONV_KERNEL_MIN_OUT = 8
+
+
+def takes_conv_kernel(conv, device_type: str, dtype) -> bool:
+    """Whether Conv2d `conv` sends an input of `dtype` (after `promote`) on
+    a `device_type` device to the convolution kernels (ops/conv.py): on
+    CUDA, float32, 3x3, stride 1, padding 1 (zeros), dilation 1, groups 1,
+    at least CONV_KERNEL_MIN_OUT output channels, outside no_kernel()."""
+    return (device_type == "cuda" and dtype == torch.float32 and conv.kernel_size == (3, 3)
+            and conv.stride == (1, 1) and conv.padding == (1, 1) and conv.dilation == (1, 1)
+            and conv.groups == 1 and conv.padding_mode == "zeros"
+            and conv.out_channels >= CONV_KERNEL_MIN_OUT and not kernels_disabled())
+
+
 class Conv2d(_Casting, nn.Conv2d):
     def _apply_cast(self, x, weight, bias):
+        if takes_conv_kernel(self, x.device.type, x.dtype):
+            return Conv3x3.apply(x, weight, bias)
         return self._conv_forward(x, weight, bias)
 
 

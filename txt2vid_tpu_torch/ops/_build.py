@@ -24,7 +24,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> its source under csrc/
-SOURCES = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu"}
+SOURCES = {"attention_fwd": "attention_fwd.cu", "attention_bwd": "attention_bwd.cu",
+           "conv3x3": "conv3x3.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # name -> nvcc's output (registers, spills)
